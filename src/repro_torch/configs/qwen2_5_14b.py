@@ -1,0 +1,10 @@
+"""qwen2.5-14b — dense GQA with QKV bias [hf:Qwen/Qwen2.5-0.5B; hf]."""
+from .base import ModelConfig, lm_shapes
+
+CONFIG = ModelConfig(
+    name="qwen2.5-14b", family="dense",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, d_ff=13824,
+    vocab_size=152064, head_dim=128, qkv_bias=True, rope_theta=1e6,
+    shapes=lm_shapes(long_ok=False),
+    source="hf:Qwen/Qwen2.5-0.5B",
+)
