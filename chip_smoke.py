@@ -26,15 +26,42 @@ Phases (any failure exits non-zero before the result lines are printed):
 6. Time each kernel, its plain version and (for the exact GEMM) the PyTorch
    call ``torch._int_mm`` with CUDA events at the main path's shapes, beside
    the card's bound for the same work.
+7. Hold the paged-attention kernel against its plain version (the gather
+   path) at smollm-360m's attention shapes (KH = 5, G = 3, D = 64, block 8):
+   bf16 and int8 pools, permuted and fragmented tables, ragged
+   kv_valid_len including 0 and rows past one chunk, Sq = 1 (decode) and
+   Sq = 8 (a prefill chunk), window and softcap cases, n_splits 1 and 3;
+   within one bf16 ulp (``ATTN_RTOL``) plus ``ATTN_ATOL``.
+8. Serve smollm-360m at full width through the engine
+   (``serve.run_engine``, 4 slots, block 8, prefill chunk 8, prefix cache
+   on) under ``mxu_int8`` and ``approx_lut``, bound: 16 requests with
+   prompts of 16-48 tokens, 16 new tokens each, half of them behind a shared
+   16-token system prompt. Counters set to 0 just before and read just
+   after: ``paged_attention`` must run 32 times per chunk step and each
+   backend's GEMM kernel 225 times per chunk step; ``prefix_hits`` and COW
+   copies must be > 0; each request's greedy stream must equal the
+   lockstep stream of its prompt alone, except at a flagged tie (the
+   lockstep's top-2 margin at the first differing token within
+   ``LOGIT_ATOL``). Then the same trace again, untraced with per-step wall
+   times, and a third time with the profiler on a window of steps: the
+   device's idle share of the engine step.
+9. Time ``paged_attention`` at every chunk step of the served trace (the
+   step's real tables, live lengths and positions), its plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` over the same K/V
+   gathered into contiguous tensors beforehand (the gather is not timed),
+   with the same mask, beside the bound (live KV bytes over the memory
+   rate); totals per served batch, 32 layers per step.
 
 The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Per-kernel times in it are
-totals over the main path's launches of one served batch (each shape's time
-times its number of calls). ``torch._int_mm`` refuses M <= 16, so at the
-decode GEMMs (M = 4) it multiplies the moving operand zero-padded to 32 rows
-(padded outside the timed call) and its first M rows, held equal to the
-kernel's output, are the product. No PyTorch call computes the table GEMM:
-its ``library_ms`` is null.
+last line is ``{"ok": true, "device": {...}}``. ``launches`` in it counts
+the kernel's launches over every counted main-path run (lockstep and engine,
+both backends). The GEMM kernels' times are totals over one lockstep served
+batch (each shape's time times its number of calls), the paged-attention
+kernel's over one engine served batch. ``torch._int_mm`` refuses M <= 16, so
+at the decode GEMMs (M = 4) it multiplies the moving operand zero-padded to
+32 rows (padded outside the timed call) and its first M rows, held equal to
+the kernel's output, are the product. No PyTorch call computes the table
+GEMM: its ``library_ms`` is null.
 """
 import json
 import os
@@ -50,11 +77,15 @@ import torch  # noqa: E402
 
 from repro_torch.configs import ARCHS, reduced  # noqa: E402
 from repro_torch.core import gemm  # noqa: E402
-from repro_torch.kernels import _build, approx_gemm, systolic_gemm  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch.kernels import (_build, approx_gemm,  # noqa: E402
+                                 paged_attention, systolic_gemm)
 from repro_torch.kernels.ref import (approx_matmul_ref,  # noqa: E402
-                                     systolic_matmul_ref)
-from repro_torch.launch import serve, trace_serve  # noqa: E402
+                                     paged_attention_ref, systolic_matmul_ref)
+from repro_torch.launch import engine, serve, trace_serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.layers import cache_load  # noqa: E402
 
 ARCH = "smollm-360m"
 BATCH, PROMPT, GEN = 4, 16, 16          # serve.main's CLI defaults
@@ -65,7 +96,17 @@ HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12                # dense int8 tensor-core peak
 SMEM_LOOKUPS_PER_CLOCK = 32             # shared-memory accesses per SM per clock
 SPIN_CYCLES = 2_000_000                 # ~1 ms at the H100's SM clock
+BF16_FLOPS_PER_S = 989e12               # dense bf16 tensor-core peak
 LOGIT_ATOL = 0.125   # 4 bf16 ulps at |logit| < 8: float ops round differently
+# paged attention against the gather path: both round the f32 result to bf16
+# once, after sums taken in another order, so one bf16 ulp (2^-7 of the
+# value) plus an absolute term for sums that cancel near zero
+ATTN_RTOL, ATTN_ATOL = 2.0 ** -7, 1e-4
+ATTN_CHUNK = 1024                       # the engine's attn_chunk
+ENGINE_ARGS = ["--engine", "--batch", "4", "--prompt-len", "48",
+               "--gen-len", "16", "--block-size", "8", "--prefill-chunk", "8"]
+N_REQUESTS, SYSTEM_LEN = 16, 16
+TRACE_WINDOW = (8, 16)                  # chunk steps traced by the profiler
 KERNELS = {
     "systolic_gemm": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/systolic_gemm.cu",
@@ -75,6 +116,11 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/approx_gemm.cu",
         replaces="src/repro/kernels/approx_gemm.py:93", backend="approx_lut",
         module=approx_gemm),
+    "paged_attention": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:323", backend=None,
+        module=paged_attention),
 }
 
 
@@ -304,6 +350,278 @@ def time_kernels(cfg, device, sm_clock_hz):
     return tot
 
 
+def paged_inputs(seed, *, b, sq, width, kvl, kv_dtype, device, bs=8):
+    """smollm-360m's attention at one layer: q (b, sq, 15, 64) bf16, pools
+    (n_blocks + 1, 8, 5, 64) in ``kv_dtype`` (int8 payloads at scale 32), a
+    permuted table per row with the dump index past its live blocks, and
+    query positions ending at each row's live length."""
+    cfg = ARCHS[ARCH]
+    h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_blocks = b * width + 7
+    q = torch.randn((b, sq, h, d), generator=g).to(torch.bfloat16)
+    k, v = (torch.randn((n_blocks + 1, bs, kh, d), generator=g)
+            for _ in range(2))
+    if kv_dtype == torch.int8:
+        k, v = (torch.clamp(torch.round(x * 32), -127, 127).to(torch.int8)
+                for x in (k, v))
+    perm = torch.randperm(n_blocks, generator=g)[:b * width].reshape(b, width)
+    kvl_t = torch.tensor(kvl, dtype=torch.int32)
+    tables = torch.where(torch.arange(width)[None, :] * bs < kvl_t[:, None],
+                         perm, n_blocks).to(torch.int32)
+    qpos = torch.clamp_min(kvl_t[:, None] - sq + torch.arange(sq)[None, :],
+                           0).to(torch.int32)
+    return [t.to(device) for t in (q, k.to(kv_dtype), v.to(kv_dtype), tables,
+                                   kvl_t, qpos)]
+
+
+def check_paged(device):
+    """Phase 7: the paged-attention kernel against its plain version;
+    returns max |err| over the live rows."""
+    # (Sq, table width, kv_valid_len per row, chunk, window, softcap): the
+    # engine's tables (8 blocks, one chunk), then 32-block tables in 64-wide
+    # chunks (4 chunks: rows past one chunk, 3 splits)
+    cases = [(1, 8, [0, 13, 40, 64], ATTN_CHUNK, 0, 0.0),
+             (8, 8, [8, 0, 41, 64], ATTN_CHUNK, 0, 0.0),
+             (1, 32, [70, 0, 200, 256], 64, 0, 0.0),
+             (8, 32, [0, 77, 130, 256], 64, 0, 0.0),
+             (8, 32, [9, 150, 0, 256], 64, 24, 0.0),
+             (1, 32, [250, 0, 65, 8], 64, 0, 30.0)]
+    worst, n = 0.0, 0
+    for i, (sq, width, kvl, chunk, window, softcap) in enumerate(cases):
+        for kv_dtype in (torch.bfloat16, torch.int8):
+            q, k, v, tables, kvl_t, qpos = paged_inputs(
+                i, b=len(kvl), sq=sq, width=width, kvl=kvl,
+                kv_dtype=kv_dtype, device=device)
+            want = paged_attention_ref(q, k, v, tables, kvl_t, qpos,
+                                       window=window, softcap=softcap,
+                                       chunk=chunk).float()
+            live = kvl_t > 0
+            for n_splits in (1, 3):
+                got = paged_attention.paged_attention(
+                    q, k, v, tables, kvl_t, qpos, window=window,
+                    softcap=softcap, chunk=chunk, n_splits=n_splits)
+                torch.cuda.synchronize()
+                err = (got.float() - want)[live].abs()
+                ok = bool((err <= ATTN_RTOL * want[live].abs()
+                           + ATTN_ATOL).all()) and not got[~live].any()
+                worst = max(worst, float(err.max()))
+                n += 1
+                if not ok:
+                    raise AssertionError(
+                        f"paged_attention != plain at case {i} "
+                        f"({kv_dtype}, n_splits={n_splits}): max |err| "
+                        f"{float(err.max())}")
+    print(f"paged_attention within {ATTN_RTOL} * |plain| + {ATTN_ATOL} of "
+          f"its plain version in {n} checks (bf16/int8 pools, Sq 1/8, "
+          f"window, softcap, n_splits 1/3): max |err| {worst}", flush=True)
+    return worst
+
+
+def engine_trace(vocab):
+    """The served trace: 16 requests, 16 new tokens each, prompts of 16-48
+    tokens, two arriving per step. The even ones start with one 16-token
+    system prompt (request 4 is exactly it, so its whole prompt is cached
+    and its recomputed last position copies a shared block on write)."""
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, vocab, SYSTEM_LEN)
+    reqs = []
+    for rid in range(N_REQUESTS):
+        if rid % 2:
+            prompt = rng.integers(0, vocab, int(rng.integers(16, 49)))
+        else:
+            tail = 0 if rid == 4 else int(rng.integers(1, 33))
+            prompt = np.concatenate([system, rng.integers(0, vocab, tail)])
+        reqs.append(engine.Request(rid=rid, prompt=prompt.astype(np.int32),
+                                   max_new_tokens=GEN, arrival=rid // 2))
+    return reqs
+
+
+def _fresh(reqs):
+    return [engine.Request(**{**r.__dict__, "preempt_count": 0})
+            for r in reqs]
+
+
+def serve_engine_full_width(cfg, backend):
+    """Phase 8 for one backend. Returns (launches, stats, recorded chunk-step
+    inputs, idle share)."""
+    args = serve.build_parser().parse_args(
+        ["--arch", ARCH, "--backend", backend] + ENGINE_ARGS)
+    cfg, model, params, policy, _ = serve.setup(args)
+    reqs = engine_trace(cfg.vocab_size)
+    for k in KERNELS.values():
+        k["module"].launches = 0
+    finished, eng = serve.run_engine(args, cfg, params, policy,
+                                     requests=_fresh(reqs))
+    launches = {name: k["module"].launches for name, k in KERNELS.items()}
+    st = eng.stats
+    steps = st["host_syncs"]                      # chunk steps (one sync each)
+    print(f"{backend} engine stats: {json.dumps(st)}", flush=True)
+    expect = {name: (cfg.n_layers if name == "paged_attention" else
+                     (7 * cfg.n_layers + 1) if k["backend"] == backend else 0)
+              * steps for name, k in KERNELS.items()}
+    if launches != expect:
+        raise AssertionError(f"{backend} engine: launches {launches}, "
+                             f"expected {expect} over {steps} chunk steps")
+    if not (st["prefix_hits"] > 0 and st["prefix_cow_copies"] > 0
+            and st["finished"] == N_REQUESTS):
+        raise AssertionError(f"{backend} engine: no prefix hit or COW copy, "
+                             f"or unfinished requests: {st}")
+    ties = 0
+    for r in reqs:
+        margins = []
+        want = serve.lockstep_generate(
+            cfg, model, params,
+            torch.from_numpy(r.prompt[None].astype(np.int64)).to(
+                params["embed"].device), r.max_new_tokens, policy=policy,
+            margins=margins)[0]
+        got = finished[r.rid].tokens
+        if got.shape != want.shape or not ((got >= 0)
+                                           & (got < cfg.vocab_size)).all():
+            raise AssertionError(f"{backend} engine: bad stream {got}")
+        diff = np.nonzero(got != want)[0]
+        if diff.size:
+            margin = float(margins[int(diff[0])][0])
+            if margin > LOGIT_ATOL:
+                raise AssertionError(
+                    f"{backend} engine: rid {r.rid} differs from lockstep at "
+                    f"token {int(diff[0])} with top-2 margin {margin}")
+            ties += 1
+            print(f"{backend} engine: flagged tie, rid {r.rid} token "
+                  f"{int(diff[0])} (lockstep top-2 margin {margin})",
+                  flush=True)
+    print(f"{backend} engine: {N_REQUESTS} streams equal to lockstep "
+          f"({ties} flagged ties); launches {launches} over {steps} chunk "
+          f"steps", flush=True)
+    idle, recorded = engine_idle_share(args, cfg, params, policy, reqs)
+    print(f"{backend} engine: device idle share {idle['idle_share']:.3f} "
+          f"over chunk steps {TRACE_WINDOW} (busy {idle['busy_ms']:.3f} ms/"
+          f"step, wall {idle['wall_ms']:.3f} ms/step, "
+          f"{idle['events']:.0f} device events/step)", flush=True)
+    return launches, st, recorded, idle
+
+
+def engine_idle_share(args, cfg, params, policy, reqs):
+    """The trace again, untraced: each chunk step's wall time (a step ends
+    in its token sync) and its paged-attention inputs. Then again with the
+    profiler on chunk steps TRACE_WINDOW: device busy against the untraced
+    wall time of the same steps (scheduling is deterministic)."""
+    recorded = []
+
+    def run(traced):
+        eng = serve.make_engine(args, cfg, params, policy)
+        chunk = eng._chunk
+
+        def record(p, tokens, cache, pos, q_len):
+            if not traced:
+                recorded.append((tokens.shape[1], pos.clone(), q_len.clone(),
+                                 cache["block_tables"].clone()))
+            return chunk(p, tokens, cache, pos, q_len)
+        eng._chunk = record
+        for r in _fresh(reqs):
+            eng.submit(r)
+        walls, prof = [], None
+        while eng.queue or eng.active.any():
+            n = eng.host_syncs
+            if traced and n == TRACE_WINDOW[0] and prof is None:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+            if traced and n == TRACE_WINDOW[1]:
+                torch.cuda.synchronize()
+                prof.stop()
+                return eng, prof
+            t0 = time.perf_counter()
+            eng.step()
+            if eng.host_syncs > n:
+                walls.append(time.perf_counter() - t0)
+        return eng, walls
+
+    eng, walls = run(traced=False)
+    _, prof = run(traced=True)
+    events = trace_serve._device_events(prof)
+    n = TRACE_WINDOW[1] - TRACE_WINDOW[0]
+    busy = sum(us for _, us in events.values()) / 1e3 / n
+    wall = sum(walls[TRACE_WINDOW[0]:TRACE_WINDOW[1]]) * 1e3 / n
+    return dict(busy_ms=busy, wall_ms=wall, idle_share=max(0.0, 1 - busy / wall),
+                events=sum(c for c, _ in events.values()) / n,
+                step_wall_ms=sum(walls) * 1e3 / len(walls)), (eng, recorded)
+
+
+def _sdpa_inputs(q, k_pool, v_pool, tables, kvl, qpos):
+    """SDPA's inputs for the same attention: K/V gathered through the tables
+    into contiguous (B, KH, S, D) tensors and the boolean mask (valid and
+    causal), built before timing."""
+    b, sq, h, d = q.shape
+    kh = k_pool.shape[2]
+    k = cache_load(k_pool[tables.long()]).reshape(b, -1, kh, d)
+    v = cache_load(v_pool[tables.long()]).reshape(b, -1, kh, d)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = ((kpos[None, None, :] < kvl[:, None, None])
+            & (kpos[None, None, :] <= qpos[:, :, None]))[:, None]
+    return (q.transpose(1, 2).contiguous(),
+            k.transpose(1, 2).to(q.dtype).contiguous(),
+            v.transpose(1, 2).to(q.dtype).contiguous(), mask)
+
+
+def time_paged(cfg, device, recorded):
+    """Phase 9: paged_attention at each recorded chunk step (layer 0's
+    pools, the step's tables, live lengths and positions), its plain
+    version and SDPA on pre-gathered K/V; totals per served batch (32
+    layers per step) beside the bound: live KV + q + output bytes over the
+    memory rate, or 4 * D flops per valid (query, key, head) over the bf16
+    peak, whichever is larger."""
+    eng, steps = recorded
+    kp, vp = eng.cache["k"][0], eng.cache["v"][0]
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=device)
+    h, d = cfg.n_heads, cfg.hd
+    g = torch.Generator(device="cpu").manual_seed(3)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               bytes_s=0.0, ops_s=0.0)
+    lib_err = 0.0
+    for t, pos, q_len, tables in steps:
+        b = pos.shape[0]
+        q = torch.randn((b, t, h, d), generator=g).to(torch.bfloat16).to(
+            device)
+        kvl = (pos + q_len).to(torch.int32)
+        qpos = (pos[:, None] + torch.arange(t, device=device)[None, :]).to(
+            torch.int32)
+        args = (q, kp, vp, tables, kvl, qpos)
+        kern = lambda: paged_attention.paged_attention(  # noqa: E731
+            *args, chunk=ATTN_CHUNK)
+        plain = lambda: paged_attention_ref(  # noqa: E731
+            *args, chunk=ATTN_CHUNK)
+        sq_, sk, sv, mask = _sdpa_inputs(*args)
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            sq_, sk, sv, attn_mask=mask, enable_gqa=True)
+        live = (q_len > 0) & (kvl > 0)
+        if live.any():
+            diff = (lib().transpose(1, 2).float() - kern().float())[live]
+            lib_err = max(lib_err, float(diff.abs().max()))
+        elt = kp.element_size()
+        kv_pos = int(torch.clamp(kvl, max=tables.shape[1] * kp.shape[1])
+                     .sum())
+        io = (2 * kv_pos * kp.shape[2] * d * elt + 2 * q.numel()
+              * q.element_size() + tables.numel() * 4)
+        pairs = torch.clamp(torch.minimum(qpos + 1, kvl[:, None]), min=0)
+        ops = 4 * d * h * int(pairs.sum())
+        calls = cfg.n_layers
+        tot["ms"] += calls * _time_ms(kern, flush)
+        tot["plain_ms"] += calls * _time_ms(plain, flush)
+        tot["library_ms"] += calls * _time_ms(lib, flush)
+        tot["bytes_s"] += calls * io / HBM_BYTES_PER_S
+        tot["ops_s"] += calls * ops / BF16_FLOPS_PER_S
+        tot["bound_ms"] += calls * max(io / HBM_BYTES_PER_S,
+                                       ops / BF16_FLOPS_PER_S) * 1e3
+    del flush
+    print(f"paged_attention per served batch ({len(steps)} chunk steps x "
+          f"{cfg.n_layers} layers): kernel {tot['ms']:.4f} ms, plain "
+          f"{tot['plain_ms']:.4f} ms, SDPA on pre-gathered K/V "
+          f"{tot['library_ms']:.4f} ms (max |SDPA - kernel| {lib_err}), "
+          f"bound {tot['bound_ms']:.4f} ms", flush=True)
+    return tot
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -323,13 +641,21 @@ def main() -> int:
     cfg = ARCHS[ARCH]
 
     err = check_kernels(cfg, device)
-    launches = {}
+    err["paged_attention"] = check_paged(device)
+    launches = {name: 0 for name in KERNELS}
     for backend in ("mxu_int8", "approx_lut"):
         for name, n in serve_full_width(cfg, backend).items():
-            launches[name] = launches.get(name, 0) + n
+            launches[name] += n
+    recorded = None
+    for backend in ("mxu_int8", "approx_lut"):
+        n_launch, st, rec, idle = serve_engine_full_width(cfg, backend)
+        for name, n in n_launch.items():
+            launches[name] += n
+        recorded = recorded or rec
     check_outputs(cfg, device)
     trace_decode()
     tot = time_kernels(cfg, device, sm_clock_hz)
+    tot["paged_attention"] = time_paged(cfg, device, recorded)
 
     entries = []
     for name, k in KERNELS.items():

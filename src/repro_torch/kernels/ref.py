@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the GEMM kernels (port of ``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the kernels (port of ``repro/kernels/ref.py``).
 
 The kernel wrappers take these for tensors that lie on the CPU, and
 ``chip_smoke.py`` and the card tests hold each CUDA kernel against them on the
@@ -8,6 +8,8 @@ card. They run on any device.
   exact PE array computes).
 * ``approx_matmul_ref`` — approximate GEMM under the multiplier-approx model:
   product-table gathers with exact int32 accumulation over K.
+* ``paged_attention_ref`` — attention over a paged KV pool: the block-table
+  gather path of ``models.layers.chunked_attention``.
 """
 from __future__ import annotations
 
@@ -45,3 +47,19 @@ def approx_matmul_ref(a: torch.Tensor, b: torch.Tensor, table_flat: torch.Tensor
         idx = a_idx[:, k0:k0 + step, None] + b_idx[None, k0:k0 + step, :]
         acc += table[idx].sum(dim=1)
     return acc.to(torch.int32)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, block_tables: torch.Tensor,
+                        kv_valid_len, q_positions: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0,
+                        chunk: int = 1024) -> torch.Tensor:
+    """What ``paged_attention.paged_attention`` computes, by the gather path:
+    each KV chunk's blocks are gathered through the table (padded with the
+    dump row to the chunk grid), int8 payloads dequantized, and attended to
+    with the online softmax of ``layers.chunked_attention``."""
+    from repro_torch.models.layers import chunked_attention
+    return chunked_attention(q, k_pool, v_pool, q_positions, kv_valid_len,
+                             causal=causal, window=window, softcap=softcap,
+                             chunk=chunk, block_tables=block_tables)

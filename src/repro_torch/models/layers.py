@@ -1,12 +1,13 @@
 """Shared layers (port of ``repro/models/layers.py``): RMSNorm, RoPE, chunked
-GQA attention over a contiguous KV cache, SwiGLU MLP.
+GQA attention over a contiguous or paged KV cache, SwiGLU MLP.
 
 All matmuls with weights route through ``core.gemm.dot``, so the exact and
 approximate systolic backends are selectable per layer and ``bind``-prepared
 weights run weight-stationary. Attention scores and probabilities are f32
 (``torch.backends.cuda.matmul.allow_tf32`` must stay False, its default, for
-the f32 einsums to be f32 on the card). Paged caches, ring caches and the
-per-slot (ragged) forms come with the engine slice.
+the f32 einsums to be f32 on the card). Caches are contiguous (lockstep) or
+paged block pools read through per-slot block tables (the engine); the ring
+caches of windowed families come with a later slice.
 """
 from __future__ import annotations
 
@@ -55,46 +56,104 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap) if cap > 0 else x
 
 
+def _as_batched(x: torch.Tensor) -> torch.Tensor:
+    """A per-sequence vector in batched form: (S,) -> (1, S)."""
+    return x[None, :] if x.dim() == 1 else x
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      q_positions: torch.Tensor, kv_valid_len: int, *,
+                      q_positions: torch.Tensor, kv_valid_len, *,
                       causal: bool = True, window: int = 0,
                       softcap: float = 0.0, chunk: int = 1024,
-                      q_chunk: int = 1024) -> torch.Tensor:
+                      q_chunk: int = 1024, block_tables=None,
+                      paged_kernel=None) -> torch.Tensor:
     """Flash-style attention: outer loop over Q chunks, inner online-softmax
     loop over KV chunks, so score tensors never exceed (B, H, q_chunk, chunk).
 
     q: (B, Sq, H, D); k/v: (B, Skv, KH, D) (the cache, possibly partly
-    unwritten). q_positions: (Sq,) global positions of the queries.
-    kv_valid_len: entries at kv index >= kv_valid_len are masked. `window`
-    > 0 limits each query to the last `window` positions.
+    unwritten). q_positions: (Sq,) global positions of the queries, or
+    (B, Sq) per-slot positions (ragged continuous batching). kv_valid_len: an
+    int or a per-slot (B,) tensor; entries at kv index >= kv_valid_len are
+    masked. `window` > 0 limits each query to the last `window` positions.
+
+    **Paged KV** (``block_tables`` given): k/v are *block pools*
+    ``(n_blocks + 1, block_size, KH, D)`` (float, or int8 payloads that are
+    dequantized as they are gathered) and ``block_tables`` is the per-slot
+    ``(B, max_blocks)`` map from logical block to pool block. Each KV chunk
+    gathers only its own blocks, padding the table with the dump row
+    ``n_blocks`` up to the chunk grid, and reconstructs the positional
+    layout of a contiguous cache. This gather path is the plain version of
+    the paged-attention kernel.
+
+    ``paged_kernel`` (paged pools only): truthy sends the read to the
+    paged-attention kernel (``kernels.paged_attention``), which walks the
+    table itself; the integer is its split count (1 = sequential scan,
+    > 1 = split-KV with a log-sum-exp combine). On CPU tensors the kernel's
+    wrapper runs this gather path.
     """
+    if block_tables is not None and paged_kernel:
+        from repro_torch.kernels.paged_attention import paged_attention
+        return paged_attention(q, k, v, block_tables, kv_valid_len,
+                               q_positions, causal=causal, window=window,
+                               softcap=softcap, chunk=chunk,
+                               n_splits=int(paged_kernel))
     b, sq, h, d = q.shape
-    skv, kh = k.shape[1], k.shape[2]
+    kh = k.shape[-2]
     g = h // kh
+    dev = q.device
     qh = (q * d ** -0.5).reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4)
-    kt = k.permute(0, 2, 1, 3).to(torch.float32)             # (B, KH, Skv, D)
-    vt = v.permute(0, 2, 1, 3).to(torch.float32)
+    qpos = _as_batched(q_positions)                               # (Bq, Sq)
+    if block_tables is not None:
+        blk_sz = k.shape[1]
+        if chunk % blk_sz:
+            raise ValueError(f"attention chunk {chunk} must be a multiple of "
+                             f"the KV block size {blk_sz}")
+        skv = block_tables.shape[1] * blk_sz
+        chunk = min(chunk, skv)
+        nbpc = chunk // blk_sz
+        nk = -(-skv // chunk)
+        pad_b = nk * nbpc - block_tables.shape[1]
+        bt = block_tables.long()
+        if pad_b:   # pad with the dump block: masked like zero padding
+            bt = F.pad(bt, (0, pad_b), value=k.shape[0] - 1)
+        kt = vt = None
+    else:
+        skv = k.shape[1]
+        kt = k.permute(0, 2, 1, 3).to(torch.float32)          # (B, KH, Skv, D)
+        vt = v.permute(0, 2, 1, 3).to(torch.float32)
+
+    def kv_chunk(k0):
+        if block_tables is None:
+            return kt[:, :, k0:k0 + chunk], vt[:, :, k0:k0 + chunk]
+        cols = bt[:, k0 // blk_sz:k0 // blk_sz + nbpc]            # (B, nbpc)
+        k_blk = cache_load(k[cols]).reshape(b, chunk, kh, d)
+        v_blk = cache_load(v[cols]).reshape(b, chunk, kh, d)
+        return (k_blk.permute(0, 2, 1, 3).to(torch.float32),
+                v_blk.permute(0, 2, 1, 3).to(torch.float32))
+
     window_eff = window if window > 0 else torch.iinfo(torch.int32).max
     outs = []
     for q0 in range(0, sq, q_chunk):
         q_blk = qh[:, :, :, q0:q0 + q_chunk].to(torch.float32)  # (B,KH,G,qc,D)
-        qp = q_positions[q0:q0 + q_chunk]
+        qp = qpos[:, q0:q0 + q_chunk]                              # (Bq, qc)
         qc = q_blk.shape[3]
-        acc = torch.zeros((b, kh, g, qc, d), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kh, g, qc, d), dtype=torch.float32, device=dev)
         m = torch.full((b, kh, g, qc), BIG_NEG, dtype=torch.float32,
-                       device=q.device)
-        denom = torch.zeros((b, kh, g, qc), dtype=torch.float32, device=q.device)
+                       device=dev)
+        denom = torch.zeros((b, kh, g, qc), dtype=torch.float32, device=dev)
         for k0 in range(0, skv, chunk):
-            k_blk = kt[:, :, k0:k0 + chunk]
-            v_blk = vt[:, :, k0:k0 + chunk]
-            kpos = torch.arange(k0, k0 + k_blk.shape[2], device=q.device)
+            k_blk, v_blk = kv_chunk(k0)
+            kpos = torch.arange(k0, k0 + k_blk.shape[2], device=dev)
             s = torch.einsum("bkgqd,bkcd->bkgqc", q_blk, k_blk)
             s = _softcap(s, softcap)
-            valid = (kpos < kv_valid_len)[None, :]
+            if isinstance(kv_valid_len, torch.Tensor):             # (B, 1, C)
+                valid = (kpos[None, :] < kv_valid_len[:, None])[:, None, :]
+            else:                                                  # (1, 1, C)
+                valid = (kpos < kv_valid_len)[None, None, :]
             if causal:
-                delta = qp[:, None] - kpos[None, :]              # (qc, C)
+                delta = qp[:, :, None] - kpos[None, None, :]      # (Bq, qc, C)
                 valid = valid & (delta >= 0) & (delta < window_eff)
-            s = torch.where(valid, s, BIG_NEG)
+            s = torch.where(valid[:, None, None], s, BIG_NEG)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -105,6 +164,39 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(acc / torch.clamp_min(denom, 1e-30)[..., None])
     out = torch.cat(outs, dim=3)                                 # (B,KH,G,Sq,D)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache payload helpers and the paged cache's block tables
+# ---------------------------------------------------------------------------
+
+CACHE_INT8_SCALE = 32.0
+
+
+def init_block_tables(batch: int, max_len: int, n_blocks: int,
+                      block_size: int, device="cpu") -> torch.Tensor:
+    """The per-slot block-table leaf of a paged cache: ``(batch,
+    ceil(max_len / block_size))`` int32, every entry the dump index
+    ``n_blocks`` (the pool's scratch row), as ``launch.paged.BlockPool``
+    sizes its rows."""
+    return torch.full((batch, -(-max_len // block_size)), n_blocks,
+                      dtype=torch.int32, device=device)
+
+
+def cache_store(x: torch.Tensor, dtype) -> torch.Tensor:
+    """K/V in the cache's payload type: int8 at ``CACHE_INT8_SCALE``
+    (round half to even, clipped to +-127), else a cast."""
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(x.to(torch.float32) * CACHE_INT8_SCALE),
+                           -127, 127).to(torch.int8)
+    return x.to(dtype)
+
+
+def cache_load(x: torch.Tensor) -> torch.Tensor:
+    """A cache payload as values: int8 dequantized to float32."""
+    if x.dtype == torch.int8:
+        return x.to(torch.float32) / CACHE_INT8_SCALE
+    return x
 
 
 def _normal(generator: torch.Generator, shape, std: float, dtype, device):
@@ -131,9 +223,10 @@ def init_attention(generator: torch.Generator, d_model: int, n_heads: int,
 
 
 def attention_block(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
-                    q_positions, kv_cache=None, cache_pos: int = 0,
+                    q_positions, kv_cache=None, cache_pos=0, kv_valid_len=None,
                     causal=True, window=0, softcap=0.0, chunk=1024,
-                    policy: GemmPolicy = EXACT, layer: str = ""):
+                    policy: GemmPolicy = EXACT, layer: str = "",
+                    block_tables=None, token_valid=None, paged_kernel=None):
     """GQA attention. Returns (out, kv_cache).
 
     kv_cache=(k, v): contiguous (B, S, KH, D) cache tensors. The new K/V are
@@ -141,6 +234,16 @@ def attention_block(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     batch at one position) and attention runs over the first
     ``cache_pos + Sq`` entries. Without a cache, attention runs over the
     block's own K/V.
+
+    With ``block_tables`` the cache is a *paged block pool*
+    ``(n_blocks + 1, block_size, KH, D)`` per leaf: ``cache_pos`` is the
+    per-slot (B,) write position, the token at logical position p is
+    scattered (in place) to pool block ``block_tables[b, p // block_size]``
+    at offset ``p % block_size``, and tokens masked by ``token_valid``
+    (B, Sq) go to the dump block (pool row ``n_blocks``). Reads go through
+    the table: the gather path, or the paged-attention kernel when
+    ``paged_kernel`` is truthy. ``kv_valid_len`` is the per-slot (B,) count
+    of valid cache entries.
     """
     b, sq, _ = x.shape
     q = dot(x, p["wq"], policy, layer=layer + "/wq")
@@ -153,15 +256,34 @@ def attention_block(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     v = v.reshape(b, sq, n_kv_heads, head_dim)
     q = rope(q, q_positions, rope_theta)
     k = rope(k, q_positions, rope_theta)
-    if kv_cache is not None:
+    if kv_cache is not None and block_tables is not None:
         ck, cv = kv_cache
-        ck[:, cache_pos:cache_pos + sq] = k
-        cv[:, cache_pos:cache_pos + sq] = v
-        k_all, v_all, valid = ck, cv, cache_pos + sq
+        blk_sz = ck.shape[1]
+        idx = cache_pos[:, None] + torch.arange(sq, device=x.device)[None, :]
+        lblk = torch.clamp_max(torch.div(idx, blk_sz, rounding_mode="floor"),
+                               block_tables.shape[1] - 1)
+        blk = torch.gather(block_tables, 1, lblk.to(block_tables.dtype)).long()
+        off = torch.remainder(idx, blk_sz)
+        if token_valid is not None:
+            blk = torch.where(token_valid, blk, ck.shape[0] - 1)
+        ck[blk, off] = cache_store(k, ck.dtype)
+        cv[blk, off] = cache_store(v, cv.dtype)
+        valid = kv_valid_len if kv_valid_len is not None else cache_pos + sq
+        out = chunked_attention(q, ck, cv, q_positions, valid, causal=causal,
+                                window=window, softcap=softcap, chunk=chunk,
+                                block_tables=block_tables,
+                                paged_kernel=paged_kernel)
     else:
-        k_all, v_all, valid = k, v, sq
-    out = chunked_attention(q, k_all, v_all, q_positions, valid, causal=causal,
-                            window=window, softcap=softcap, chunk=chunk)
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            ck[:, cache_pos:cache_pos + sq] = k
+            cv[:, cache_pos:cache_pos + sq] = v
+            k_all, v_all, valid = ck, cv, cache_pos + sq
+        else:
+            k_all, v_all, valid = k, v, sq
+        out = chunked_attention(q, k_all, v_all, q_positions, valid,
+                                causal=causal, window=window, softcap=softcap,
+                                chunk=chunk)
     out = out.reshape(b, sq, n_heads * head_dim)
     return dot(out, p["wo"], policy, layer=layer + "/wo"), kv_cache
 

@@ -2,8 +2,10 @@
 
 The reference stacks the layers and runs one traced layer under ``lax.scan``;
 PyTorch runs eagerly, so here the parameters hold a list of per-layer dicts and
-``forward`` loops over it. The MoE, audio and VLM variants, the two-tier
-windowed cache, the paged cache and ``chunk_step`` come with later slices.
+``forward`` loops over it. ``prefill``/``decode_step`` serve lockstep over a
+contiguous cache; ``chunk_step`` serves the engine over a paged cache. The
+MoE, audio and VLM variants and the two-tier windowed cache come with later
+slices.
 """
 from __future__ import annotations
 
@@ -69,14 +71,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _layer_body(lp, x, window, kv_cache, *, cfg: ModelConfig, positions,
-                cache_pos: int, policy: GemmPolicy, chunk: int):
+                cache_pos, policy: GemmPolicy, chunk: int, kv_valid_len=None,
+                block_tables=None, token_valid=None, paged_kernel=None):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     attn_out, _ = L.attention_block(
         lp["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.hd, rope_theta=cfg.rope_theta, q_positions=positions,
-        kv_cache=kv_cache, cache_pos=cache_pos, causal=cfg.causal,
-        window=window, softcap=cfg.attn_softcap, chunk=chunk, policy=policy,
-        layer="attn")
+        kv_cache=kv_cache, cache_pos=cache_pos, kv_valid_len=kv_valid_len,
+        causal=cfg.causal, window=window, softcap=cfg.attn_softcap,
+        chunk=chunk, policy=policy, layer="attn", block_tables=block_tables,
+        token_valid=token_valid, paged_kernel=paged_kernel)
     x = x + attn_out
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + L.mlp_block(lp["mlp"], h, act=cfg.act, policy=policy,
@@ -84,23 +88,47 @@ def _layer_body(lp, x, window, kv_cache, *, cfg: ModelConfig, positions,
 
 
 def forward(params: PyTree, cfg: ModelConfig, *, tokens: torch.Tensor,
-            cache: Optional[Dict] = None, cache_pos: int = 0,
-            policy: GemmPolicy = EXACT, attn_chunk: int = 1024):
+            cache: Optional[Dict] = None, cache_pos=0,
+            policy: GemmPolicy = EXACT, attn_chunk: int = 1024, q_len=None,
+            paged_kernel=None):
     """Returns (hidden, cache). tokens: (B, S). With a cache, the new K/V are
-    written **in place** at ``cache_pos`` (a Python int shared by the batch)
-    and the same cache dict is returned."""
+    written **in place** and the same cache dict is returned.
+
+    A contiguous cache takes ``cache_pos`` as a Python int shared by the
+    batch (lockstep). A cache with a ``"block_tables"`` leaf is *paged*: its
+    ``k``/``v`` leaves are block pools, ``cache_pos`` is the per-slot (B,)
+    write position of each row's first token, and ``q_len`` the per-slot
+    (B,) count of valid tokens (default S): positions past it are chunk
+    padding, whose writes go to the dump block. ``paged_kernel`` sends the
+    paged reads to the paged-attention kernel (see
+    ``layers.chunked_attention``)."""
     _check_ported(cfg)
     x = params["embed"][tokens]                                  # (B, S, d)
     # the scale rounded to the activation dtype first, as in the reference;
     # a host-side scalar, so no device copy
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
-    s = x.shape[1]
-    base = cache_pos if cache is not None else 0
-    positions = torch.arange(base, base + s, device=x.device)
+    b, s = x.shape[:2]
+    block_tables = cache.get("block_tables") if cache is not None else None
+    paged = {}
+    if block_tables is not None:
+        pos = torch.as_tensor(cache_pos, device=x.device).to(
+            torch.int32).expand(b).contiguous()
+        offs = torch.arange(s, dtype=torch.int32, device=x.device)
+        positions = pos[:, None] + offs[None, :]                 # (B, S)
+        q_len = (torch.full((b,), s, dtype=torch.int32, device=x.device)
+                 if q_len is None else q_len.to(torch.int32))
+        cache_pos = pos
+        paged = dict(kv_valid_len=pos + q_len, block_tables=block_tables,
+                     token_valid=offs[None, :] < q_len[:, None],
+                     paged_kernel=paged_kernel)
+    else:
+        base = cache_pos if cache is not None else 0
+        positions = torch.arange(base, base + s, device=x.device)
     for i, (lp, window) in enumerate(zip(params["layers"], layer_windows(cfg))):
         kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
         x = _layer_body(lp, x, window, kv, cfg=cfg, positions=positions,
-                        cache_pos=cache_pos, policy=policy, chunk=attn_chunk)
+                        cache_pos=cache_pos, policy=policy, chunk=attn_chunk,
+                        **paged)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
 
@@ -112,19 +140,32 @@ def logits_from_hidden(params, cfg: ModelConfig, hidden,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu"):
-    """Uniform (L, B, S, KH, hd) cache of a float dtype (the int8 KV payload
-    comes with the engine slice)."""
+               dtype=torch.bfloat16, device="cpu", paged=None):
+    """Uniform (L, B, S, KH, hd) contiguous cache of a float dtype, or with
+    ``paged=(n_blocks, block_size)`` shared block pools
+    ``(L, n_blocks + 1, block_size, KH, hd)`` (the ``+ 1`` is the dump block
+    masked writes go to) plus the per-slot ``block_tables`` leaf
+    ``(batch, ceil(max_len / block_size))`` set to the dump index; the
+    engine's allocator (``launch.paged.BlockPool``) owns the table contents.
+    A paged cache may hold int8 payloads (``layers.CACHE_INT8_SCALE``)."""
     _check_ported(cfg)
-    if not dtype.is_floating_point:
-        raise NotImplementedError("the int8 KV-cache payload is not ported "
-                                  "yet, see ROADMAP.md")
     if (cfg.window_size and cfg.global_every and max_len > cfg.window_size
             and cfg.n_layers % cfg.global_every == 0):
         raise NotImplementedError(
             f"{cfg.name}: the two-tier windowed (ring) cache is not ported "
             "yet, see ROADMAP.md")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    kh, hd = cfg.n_kv_heads, cfg.hd
+    if paged is not None:
+        n_blocks, blk = paged
+        shape = (cfg.n_layers, n_blocks + 1, blk, kh, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "block_tables": L.init_block_tables(batch, max_len, n_blocks,
+                                                    blk, device)}
+    if not dtype.is_floating_point:
+        raise NotImplementedError("the int8 KV payload of the contiguous "
+                                  "cache is not ported yet, see ROADMAP.md")
+    shape = (cfg.n_layers, batch, max_len, kh, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -146,4 +187,23 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
     hidden, cache = forward(params, cfg, tokens=token, cache=cache,
                             cache_pos=int(pos), policy=policy,
                             attn_chunk=attn_chunk)
+    return logits_from_hidden(params, cfg, hidden, policy), cache
+
+
+def chunk_step(params, cfg: ModelConfig, tokens, cache, pos, q_len, *,
+               policy: GemmPolicy = EXACT, attn_chunk: int = 1024,
+               paged_kernel=None):
+    """One serving step over a (B, T) token block of a paged cache: decode
+    (T == 1, q_len == 1) and chunked prefill (per-slot q_len <= T, trailing
+    padding masked) in one form, so a mixed prefill+decode batch is rows
+    with different q_len. Writes land at per-slot positions ``pos[b] + j``
+    for ``j < q_len[b]``; returns the f32 logits of each slot's **last
+    valid** token, (B, 1, V), and the cache (written in place)."""
+    hidden, cache = forward(params, cfg, tokens=tokens, cache=cache,
+                            cache_pos=pos, policy=policy,
+                            attn_chunk=attn_chunk, q_len=q_len,
+                            paged_kernel=paged_kernel)
+    sel = torch.clamp_min(q_len.to(torch.int64) - 1, 0)
+    hidden = torch.gather(hidden, 1, sel[:, None, None].expand(
+        -1, 1, hidden.shape[-1]))                                  # (B, 1, d)
     return logits_from_hidden(params, cfg, hidden, policy), cache

@@ -7,17 +7,25 @@ has none); run it there without the JAX package's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Kernels are held bit-exact against their plain versions: both compute
-integer sums exactly.
+The GEMM kernels are held bit-exact against their plain versions: both
+compute integer sums exactly. The paged-attention kernel sums in another
+order than its plain version (the gather path on cuBLAS f32 einsums, TF32
+off), so it is held to a tolerance: with f32 q and pools within
+``F32_ATOL``; with bf16 outputs within one bf16 ulp (``BF16_RTOL`` = 2^-7 of
+the value) plus ``BF16_ATOL`` for sums that cancel near zero.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import approx_gemm, ops, systolic_gemm
-from repro_torch.kernels.ref import approx_matmul_ref, systolic_matmul_ref
+from repro_torch.kernels import (approx_gemm, ops, paged_attention,
+                                 systolic_gemm)
+from repro_torch.kernels.ref import (approx_matmul_ref, paged_attention_ref,
+                                     systolic_matmul_ref)
 
 pytestmark = pytest.mark.cuda
+F32_ATOL = 1e-5
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
 
 # (M, K, N): the slice's decode/prefill shapes for smollm-360m and odd shapes
 SHAPES = [(4, 960, 960), (4, 960, 320), (64, 960, 2560), (64, 2560, 960),
@@ -105,3 +113,119 @@ def test_reduced_server_on_card(device, backend):
     assert mod.launches - before == 4 * (7 * 2 + 1)
     np.testing.assert_array_equal(bound, serve.main(argv + ["--no-bind"]))
     assert ((bound >= 0) & (bound < 256)).all()
+
+
+
+def paged_inputs(seed, *, b, sq, h, kh, d, bs, width, kvl, q_dtype, kv_dtype,
+                 device):
+    """Random q and pools, a permuted fragmented table per row (dump index
+    past the live blocks) and query positions ending at each row's live
+    length, so every query of a row with kvl > 0 sees a valid key."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_blocks = b * width + 5
+    q = torch.randn((b, sq, h, d), generator=g).to(q_dtype)
+    k = torch.randn((n_blocks + 1, bs, kh, d), generator=g)
+    v = torch.randn((n_blocks + 1, bs, kh, d), generator=g)
+    if kv_dtype == torch.int8:
+        k, v = (torch.clamp(torch.round(x * 32), -127, 127).to(torch.int8)
+                for x in (k, v))
+    else:
+        k, v = k.to(kv_dtype), v.to(kv_dtype)
+    perm = torch.randperm(n_blocks, generator=g)[:b * width].reshape(b, width)
+    kvl_t = torch.tensor(kvl, dtype=torch.int32)
+    tables = torch.where(torch.arange(width)[None, :] * bs < kvl_t[:, None],
+                         perm, n_blocks).to(torch.int32)
+    qpos = torch.clamp_min(kvl_t[:, None] - sq + torch.arange(sq)[None, :],
+                           0).to(torch.int32)
+    return [t.to(device) for t in (q, k, v, tables, kvl_t, qpos)]
+
+
+# (Sq, H, KH, D, block size, table width, kv_valid_len, chunk, window, softcap)
+PAGED = [(1, 15, 5, 64, 8, 8, [0, 13, 40, 64], 1024, 0, 0.0),
+         (8, 15, 5, 64, 8, 8, [8, 0, 40, 64], 1024, 0, 0.0),
+         (8, 15, 5, 64, 8, 32, [0, 70, 200, 256], 64, 0, 0.0),
+         (1, 15, 5, 64, 8, 32, [9, 70, 0, 256], 64, 24, 30.0),
+         (5, 4, 2, 16, 4, 6, [5, 24, 0, 11], 8, 0, 0.0),
+         (3, 8, 1, 128, 16, 4, [64, 3, 0, 40], 32, 7, 0.0),
+         (2, 4, 4, 32, 8, 5, [2, 33, 40, 0], 16, 0, 5.0)]
+
+
+@pytest.mark.parametrize("case", PAGED)
+def test_paged_attention_matches_plain(device, case):
+    """f32, bf16 and int8 pools (q in f32, bf16, bf16), n_splits 1 and 3."""
+    for q_dtype, kv_dtype in ((torch.float32, torch.float32),
+                              (torch.bfloat16, torch.bfloat16),
+                              (torch.bfloat16, torch.int8)):
+        _check_paged_case(device, case, q_dtype, kv_dtype)
+
+
+def _check_paged_case(device, case, q_dtype, kv_dtype):
+    sq, h, kh, d, bs, width, kvl, chunk, window, softcap = case
+    q, k, v, tables, kvl_t, qpos = paged_inputs(
+        sum(kvl) + sq, b=len(kvl), sq=sq, h=h, kh=kh, d=d, bs=bs, width=width,
+        kvl=kvl, q_dtype=q_dtype, kv_dtype=kv_dtype, device=device)
+    want = paged_attention_ref(q, k, v, tables, kvl_t, qpos, window=window,
+                               softcap=softcap, chunk=chunk).float()
+    live = kvl_t > 0
+    for n_splits in (1, 3):
+        before = paged_attention.launches
+        got = paged_attention.paged_attention(
+            q, k, v, tables, kvl_t, qpos, window=window, softcap=softcap,
+            chunk=chunk, n_splits=n_splits)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == before + 1
+        assert got.shape == q.shape and got.dtype == q.dtype
+        assert not got[~live].any()          # kv_valid_len == 0: zeros
+        err = (got.float() - want)[live].abs()
+        what = (q_dtype, kv_dtype, n_splits, err.max().item())
+        if q_dtype == torch.float32:
+            assert err.max().item() <= F32_ATOL, what
+        else:
+            bound = BF16_RTOL * want[live].abs() + BF16_ATOL
+            assert (err <= bound).all(), what
+
+
+def test_paged_attention_refuses_what_the_kernel_does_not_take(device):
+    q, k, v, tables, kvl, qpos = paged_inputs(
+        0, b=2, sq=1, h=4, kh=2, d=16, bs=4, width=3, kvl=[3, 5],
+        q_dtype=torch.float32, kv_dtype=torch.float32, device=device)
+    with pytest.raises(ValueError, match="multiple of the KV block"):
+        paged_attention.paged_attention(q, k, v, tables, kvl, qpos, chunk=6)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_attention.paged_attention(q[..., :8].contiguous(),
+                                        k[..., :8].contiguous(),
+                                        v[..., :8].contiguous(), tables, kvl,
+                                        qpos)
+    with pytest.raises(TypeError):
+        paged_attention.paged_attention(q.half(), k, v, tables, kvl, qpos)
+    with pytest.raises(ValueError):
+        paged_attention.paged_attention(q, k.cpu(), v, tables, kvl, qpos)
+
+
+@pytest.mark.parametrize("backend", ["mxu_int8", "approx_lut"])
+def test_reduced_engine_on_card(device, backend):
+    """The engine on the card: paged attention through the kernel (2 layers
+    per chunk step), GEMMs through the backend's kernel, streams equal to
+    the card's lockstep for the same prompts (a differing token only at a
+    top-2 margin within 4 bf16 ulps)."""
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(
+        ["--debug", "--engine", "--backend", backend, "--requests", "6",
+         "--gen-len", "6", "--prompt-len", "12"])
+    cfg, model, params, policy, _ = serve.setup(args)
+    reqs = serve.engine_requests(args, cfg)
+    mod = systolic_gemm if backend == "mxu_int8" else approx_gemm
+    before = (paged_attention.launches, mod.launches)
+    finished, eng = serve.run_engine(args, cfg, params, policy, requests=reqs)
+    steps = eng.stats["host_syncs"]
+    assert paged_attention.launches - before[0] == 2 * steps
+    assert mod.launches - before[1] == (7 * 2 + 1) * steps
+    for r in reqs:
+        margins = []
+        want = serve.lockstep_generate(
+            cfg, model, params, torch.from_numpy(r.prompt[None]).long().to(
+                device), r.max_new_tokens, policy=policy, margins=margins)[0]
+        got = finished[r.rid].tokens
+        diff = np.nonzero(got != want)[0]
+        if diff.size:
+            assert float(margins[int(diff[0])][0]) <= 0.125, r.rid

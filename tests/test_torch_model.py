@@ -180,9 +180,24 @@ def test_serve_without_cuda_raises(monkeypatch):
         serve.main(["--debug"])
 
 
-def test_engine_flag_is_not_silently_lockstep():
-    with pytest.raises(SystemExit, match="engine: not ported yet"):
-        serve.main(["--debug", "--device", "cpu", "--engine"])
+def test_engine_flag_is_not_silently_lockstep(capsys):
+    """``--engine`` runs the continuous-batching engine, not the lockstep
+    loop: it returns the engine's finished requests and prints its report."""
+    from repro_torch.launch import engine
+    finished = serve.main(["--debug", "--device", "cpu", "--engine",
+                           "--requests", "3", "--gen-len", "4"])
+    assert isinstance(finished, dict) and len(finished) == 3
+    assert all(isinstance(f, engine.FinishedRequest)
+               for f in finished.values())
+    out = capsys.readouterr().out
+    assert "engine: 3 requests, 12 tokens" in out and "occupancy:" in out
+    assert "generated (" not in out                   # the lockstep report
+
+
+@pytest.mark.parametrize("flags", [["--contiguous"], ["--multi-step", "4"]])
+def test_unported_engine_modes_exit(flags):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        serve.main(["--debug", "--device", "cpu", "--engine", *flags])
 
 
 def test_unported_families_raise():
