@@ -14,15 +14,16 @@ Phases (any failure exits non-zero before the result lines are printed):
 3. Serve smollm-360m at full width through the user's entry point
    ``repro_torch.launch.serve.main`` (CLI defaults: batch 4, prompt 16,
    gen 16, bound) under ``mxu_int8`` and ``approx_lut``: one warm-up run,
-   then the run with the launch counters set to 0 just before and read just
-   after: each backend's kernel must run once per model GEMM,
-   n_forwards * (7 * n_layers + 1) times. Then an unbound run must give the
-   same streams bit for bit.
+   then the bound run and an unbound run, each with the launch counters set
+   to 0 just before and read just after: the backend's kernel must run once
+   per model GEMM, n_forwards * (7 * n_layers + 1) times, and the unbound
+   streams must equal the bound ones bit for bit.
 4. Check outputs: tokens in range; full-width logits finite; on a small
    (reduced) model the card's logits agree with the CPU's plain versions.
-5. Trace the decode step of the same configuration with
+5. Trace 8 decode steps of the same configuration with
    ``repro_torch.launch.trace_serve`` (host wall ms against device busy ms)
-   under ``mxu_int8``, ``approx_lut`` and ``exact``.
+   under ``mxu_int8``, ``approx_lut``, ``exact`` and ``approx_delta`` (bound
+   and unbound).
 6. Time each kernel, its plain version and (for the exact GEMM) the PyTorch
    call ``torch._int_mm`` with CUDA events at the main path's shapes, beside
    the card's bound for the same work.
@@ -51,6 +52,22 @@ Phases (any failure exits non-zero before the result lines are printed):
    gathered into contiguous tensors beforehand (the gather is not timed),
    with the same mask, beside the bound (live KV bytes over the memory
    rate); totals per served batch, 32 layers per step.
+10. The ``approx_delta`` slice. The fused delta kernel bit-exact against its
+   plain version (its own K-block) and against the product-table kernel at
+   every served shape and odd shapes, k in {0, 2, 4, 6, 8} at the exact
+   rank; a truncated rank through the exact_cancel route (bit-exact), and
+   without the residual (within one per K-block, differing entries
+   counted). Lockstep serving under ``approx_delta`` (k = 4) bound (every
+   GEMM through ``systolic_gemm`` plus the f32 correction, no
+   ``delta_gemm``) and unbound (every GEMM through ``delta_gemm``), streams
+   equal to ``approx_lut``'s; full-width prefill and decode logits bit-equal
+   to ``approx_lut``'s bound and unbound. The engine phase (8) under
+   ``approx_delta``, bound. The paper's apps at 256 px: DCT (k 2-8) and edge
+   (k 2, 4) under ``approx_lut`` and ``approx_delta``, outputs bit-identical,
+   PSNR at or above the Table-VI floors less 0.5 dB; DCT under
+   ``approx_oracle`` and BDCN (k = 2, hybrid policy). The delta kernel timed
+   with phase 6, beside the product-table kernel and the bound path
+   (``systolic_gemm`` + cuBLAS f32 correction) on the same products.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``launches`` in it counts
@@ -61,7 +78,7 @@ kernel's over one engine served batch. ``torch._int_mm`` refuses M <= 16, so
 at the decode GEMMs (M = 4) it multiplies the moving operand zero-padded to
 32 rows (padded outside the timed call) and its first M rows, held equal to
 the kernel's output, are the product. No PyTorch call computes the table
-GEMM: its ``library_ms`` is null.
+GEMM or the delta GEMM: their ``library_ms`` are null.
 """
 import json
 import os
@@ -75,13 +92,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.apps import bdcn, dct, edge, images  # noqa: E402
 from repro_torch.configs import ARCHS, reduced  # noqa: E402
-from repro_torch.core import gemm  # noqa: E402
+from repro_torch.core import error_delta, gemm  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.kernels import (_build, approx_gemm,  # noqa: E402
-                                 paged_attention, systolic_gemm)
+                                 delta_gemm, ops, paged_attention,
+                                 systolic_gemm)
 from repro_torch.kernels.ref import (approx_matmul_ref,  # noqa: E402
+                                     delta_matmul_fused_ref,
                                      paged_attention_ref, systolic_matmul_ref)
 from repro_torch.launch import engine, serve, trace_serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
@@ -97,6 +117,15 @@ INT8_OPS_PER_S = 1979e12                # dense int8 tensor-core peak
 SMEM_LOOKUPS_PER_CLOCK = 32             # shared-memory accesses per SM per clock
 SPIN_CYCLES = 2_000_000                 # ~1 ms at the H100's SM clock
 BF16_FLOPS_PER_S = 989e12               # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12                 # f32 outside the tensor cores
+DELTA_K = 4                             # serve's --k default
+# (k, truncated rank) of the truncated-rank checks of the delta kernel
+DELTA_TRUNCATED = ((6, 3), (8, 10))
+# Table VI (tests/test_quality_regression.py): k -> PSNR floor, less TOL_DB
+PAPER_DCT_PSNR = {2: 45.97, 4: 38.21, 6: 35.67, 8: 28.43}
+PAPER_EDGE_PSNR = {2: 30.45, 4: 20.51}
+TOL_DB = 0.5
+APP_SIZE = 256
 LOGIT_ATOL = 0.125   # 4 bf16 ulps at |logit| < 8: float ops round differently
 # paged attention against the gather path: both round the f32 result to bf16
 # once, after sums taken in another order, so one bf16 ulp (2^-7 of the
@@ -107,21 +136,29 @@ ENGINE_ARGS = ["--engine", "--batch", "4", "--prompt-len", "48",
                "--gen-len", "16", "--block-size", "8", "--prefill-chunk", "8"]
 N_REQUESTS, SYSTEM_LEN = 16, 16
 TRACE_WINDOW = (8, 16)                  # chunk steps traced by the profiler
+TRACE_DECODE_STEPS = 8                  # lockstep decode steps traced
 KERNELS = {
     "systolic_gemm": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/systolic_gemm.cu",
-        replaces="src/repro/kernels/systolic_gemm.py:80", backend="mxu_int8",
-        module=systolic_gemm),
+        replaces="src/repro/kernels/systolic_gemm.py:80", module=systolic_gemm),
     "approx_gemm": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/approx_gemm.cu",
-        replaces="src/repro/kernels/approx_gemm.py:93", backend="approx_lut",
-        module=approx_gemm),
+        replaces="src/repro/kernels/approx_gemm.py:93", module=approx_gemm),
     "paged_attention": dict(
         route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:323", backend=None,
+        replaces="src/repro/kernels/paged_attention.py:323",
         module=paged_attention),
+    "delta_gemm": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/delta_gemm.cu",
+        replaces="src/repro/kernels/delta_gemm.py:123", module=delta_gemm),
 }
+# the kernel that runs every model GEMM of a backend, bound and unbound
+GEMM_KERNEL = {
+    (True, "mxu_int8"): "systolic_gemm", (False, "mxu_int8"): "systolic_gemm",
+    (True, "approx_lut"): "approx_gemm", (False, "approx_lut"): "approx_gemm",
+    (True, "approx_delta"): "systolic_gemm",
+    (False, "approx_delta"): "delta_gemm"}
 
 
 def _smi(query: str) -> str:
@@ -183,31 +220,44 @@ def check_kernels(cfg, device):
     return err
 
 
-def serve_full_width(cfg, backend):
-    """Phase 3 for one backend: the bound main-path run with its launch
-    counts, then an unbound run that must match bit for bit."""
-    argv = ["--arch", ARCH, "--backend", backend]
-    serve.main(argv)             # warm-up: first-call set-up stays out
+def _counted(fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after: (result, {kernel: launches})."""
     for k in KERNELS.values():
         k["module"].launches = 0
-    bound = serve.main(argv)
-    launches = {name: k["module"].launches for name, k in KERNELS.items()}
+    out = fn()
+    return out, {name: k["module"].launches for name, k in KERNELS.items()}
+
+
+def _check_launches(what, launches, kernel, n):
+    expect = {name: n if name == kernel else 0 for name in KERNELS}
+    if launches != expect:
+        raise AssertionError(f"{what}: launches {launches}, expected {expect}")
+
+
+def serve_full_width(cfg, backend):
+    """Phase 3 for one backend: the bound main-path run, then an unbound run
+    that must match it bit for bit, each with its launch counts. Returns
+    (launches of both runs, bound stream)."""
+    argv = ["--arch", ARCH, "--backend", backend]
+    serve.main(argv)             # warm-up: first-call set-up stays out
     want = GEN * (7 * cfg.n_layers + 1)
-    for name, k in KERNELS.items():
-        expect = want if k["backend"] == backend else 0
-        if launches[name] != expect:
-            raise AssertionError(f"{backend}: {name} launched "
-                                 f"{launches[name]} times, expected {expect}")
+    bound, launches = _counted(lambda: serve.main(argv))
+    _check_launches(f"{backend} bound", launches, GEMM_KERNEL[True, backend],
+                    want)
     if bound.shape != (BATCH, GEN) or not ((bound >= 0)
                                            & (bound < cfg.vocab_size)).all():
         raise AssertionError(f"{backend}: bad token stream {bound}")
-    unbound = serve.main(argv + ["--no-bind"])
+    unbound, un_launches = _counted(lambda: serve.main(argv + ["--no-bind"]))
     if not np.array_equal(bound, unbound):
         raise AssertionError(f"{backend}: bound != unbound streams\n{bound}\n"
                              f"{unbound}")
-    print(f"{backend}: {launches} launches in the bound run; bound == unbound",
-          flush=True)
-    return launches
+    _check_launches(f"{backend} unbound", un_launches,
+                    GEMM_KERNEL[False, backend], want)
+    launches = {n: launches[n] + un_launches[n] for n in KERNELS}
+    print(f"{backend}: {launches} launches in the counted runs; bound == "
+          f"unbound", flush=True)
+    return launches, bound
 
 
 def _tree_to(tree, device):
@@ -219,29 +269,46 @@ def _tree_to(tree, device):
 
 
 def check_outputs(cfg, device):
-    """Phase 4: finite full-width logits; reduced model card == CPU logits."""
+    """Phase 4: finite full-width logits; approx_delta's prefill and first
+    decode logits bit-equal to approx_lut's, bound and unbound; reduced
+    model card == CPU logits."""
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (BATCH, PROMPT))).to(device)
     model = get_model(cfg)
     params = model.init_params(torch.Generator(device=device).manual_seed(0),
                                device)
-    for backend in ("mxu_int8", "approx_lut"):
-        pol = gemm.GemmPolicy(backend=backend)
-        logits, _ = model.prefill(model.bind_params(params, pol),
-                                  {"tokens": prompts},
-                                  model.init_cache(BATCH, PROMPT,
-                                                   device=device), policy=pol)
+    runs = {}
+    for backend, bind in (("mxu_int8", True), ("approx_lut", True),
+                          ("approx_delta", True), ("approx_delta", False)):
+        pol = gemm.GemmPolicy(backend=backend, k=DELTA_K)
+        p = model.bind_params(params, pol) if bind else params
+        cache = model.init_cache(BATCH, PROMPT + 1, device=device)
+        logits, cache = model.prefill(p, {"tokens": prompts}, cache,
+                                      policy=pol)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        step, _ = model.decode_step(p, tok, cache, PROMPT, policy=pol)
+        del p, cache
         if logits.shape != (BATCH, 1, cfg.vocab_size) or not bool(
-                torch.isfinite(logits).all()):
+                torch.isfinite(logits).all() & torch.isfinite(step).all()):
             raise AssertionError(f"{backend}: full-width logits not finite "
                                  f"or of shape {tuple(logits.shape)}")
-    del params
+        runs[backend, bind] = (logits, step)
+    for bind in (True, False):
+        for a, b in zip(runs["approx_delta", bind], runs["approx_lut", True]):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"approx_delta ({'bound' if bind else 'unbound'}) "
+                    f"full-width logits != approx_lut's: max |diff| "
+                    f"{(a.float() - b.float()).abs().max().item()}")
+    print("approx_delta full-width prefill and decode logits bit-equal to "
+          "approx_lut's, bound and unbound", flush=True)
+    del params, runs
     small = reduced(cfg)
     sm = get_model(small)
     cpu_params = sm.init_params(torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, small.vocab_size, (BATCH, PROMPT)))
-    for backend in ("mxu_int8", "approx_lut"):
+    for backend in ("mxu_int8", "approx_lut", "approx_delta"):
         pol = gemm.GemmPolicy(backend=backend)
         out = {}
         for dev in ("cpu", device):
@@ -259,9 +326,14 @@ def check_outputs(cfg, device):
 
 
 def trace_decode():
-    """Phase 5: device busy time and idle share of a decode step."""
-    for backend in ("mxu_int8", "approx_lut", "exact"):
-        trace_serve.main(["--arch", ARCH, "--backend", backend])
+    """Phase 5: device busy time and idle share of a decode step (and
+    approx_delta unbound: the delta kernel's share of the step), over
+    TRACE_DECODE_STEPS steps at the served batch and prompt."""
+    for flags in (["--backend", "mxu_int8"], ["--backend", "approx_lut"],
+                  ["--backend", "exact"], ["--backend", "approx_delta"],
+                  ["--backend", "approx_delta", "--no-bind"]):
+        trace_serve.main(["--arch", ARCH, "--gen-len",
+                          str(TRACE_DECODE_STEPS + 1)] + flags)
 
 
 def _time_ms(fn, flush):
@@ -304,19 +376,32 @@ def _int_mm_ms(a, b, flush):
 
 
 def time_kernels(cfg, device, sm_clock_hz):
-    """Phase 5: per-shape times and bounds; totals over one served batch."""
+    """Phase 6: per-shape times and bounds; totals over one served batch.
+    Beside ``delta_gemm``, the bound path of the same product (the exact
+    kernel plus the f32 correction against the weight-stationary factor,
+    ``ops.prepared_matmul``) is timed as a comparison (``bound_path_ms``)."""
     flush = torch.empty(256 << 20, dtype=torch.int8, device=device)
     sms = _build.sm_count(device)
     lookups_per_s = sms * SMEM_LOOKUPS_PER_CLOCK * sm_clock_hz
-    table = approx_gemm.make_table(4, device=device)      # the CLI's --k 4
+    table = approx_gemm.make_table(DELTA_K, device=device)
+    fac = error_delta.delta_factors(8, DELTA_K)
+    f_flat, g_flat = error_delta.factor_tables(fac, device)
     tot = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_s=0.0, ops_s=0.0,
                    library_ms=0.0 if n == "systolic_gemm" else None)
-           for n in KERNELS}
+           for n in KERNELS if n != "paged_attention"}
+    tot["delta_gemm"]["bound_path_ms"] = 0.0
     print("shape (M,K,N) calls | kernel ms | plain ms | bound ms (by) | "
-          "torch._int_mm ms", flush=True)
+          "torch._int_mm ms or delta bound path ms", flush=True)
     for (m, kd, n), calls in sorted(slice_gemms(cfg).items()):
         a, b = _int8((m, kd), 7, device), _int8((kd, n), 8, device)
         io = m * kd + kd * n + 4 * m * n
+        prep = ops.prepare_operand(b, backend="approx_delta", k=DELTA_K,
+                                   restrict=False)
+        if not torch.equal(ops.prepared_matmul(a, prep),
+                           delta_gemm.delta_matmul_fused(
+                               a, b, f_flat, g_flat, rank=fac.rank)):
+            raise AssertionError(f"bound delta path != delta_gemm at "
+                                 f"{(m, kd, n)}")
         runs = {
             "systolic_gemm": (lambda: systolic_gemm.systolic_matmul(a, b),
                               lambda: systolic_matmul_ref(a, b),
@@ -327,6 +412,14 @@ def time_kernels(cfg, device, sm_clock_hz):
                                                       span=table.span),
                             (io + 2 * table.flat.numel()) / HBM_BYTES_PER_S,
                             m * n * kd / lookups_per_s),
+            "delta_gemm": (lambda: delta_gemm.delta_matmul_fused(
+                               a, b, f_flat, g_flat, rank=fac.rank),
+                           lambda: delta_matmul_fused_ref(
+                               a, b, f_flat, g_flat, rank=fac.rank,
+                               bk=delta_gemm.KERNEL_BK),
+                           (io + 2 * f_flat.numel() * 4) / HBM_BYTES_PER_S,
+                           2 * m * n * kd * fac.rank / F32_FLOPS_PER_S
+                           + 2 * m * n * kd / INT8_OPS_PER_S),
         }
         for name, (kern, plain, bytes_s, ops_s) in runs.items():
             k_ms, p_ms = _time_ms(kern, flush), _time_ms(plain, flush)
@@ -338,6 +431,10 @@ def time_kernels(cfg, device, sm_clock_hz):
                 t["library_ms"] += calls * lib_ms
                 lib = f"{lib_ms:.4f}" + (f" (M padded to {INT_MM_MIN_M})"
                                          if m < INT_MM_MIN_M else "")
+            if name == "delta_gemm":
+                bp_ms = _time_ms(lambda: ops.prepared_matmul(a, prep), flush)
+                t["bound_path_ms"] += calls * bp_ms
+                lib = f"bound path {bp_ms:.4f}"
             print(f"{name} ({m},{kd},{n}) x{calls} | {k_ms:.4f} | {p_ms:.4f} "
                   f"| {bound:.4f} ({'bytes' if bytes_s >= ops_s else 'ops'})"
                   f" | {lib}", flush=True)
@@ -346,7 +443,15 @@ def time_kernels(cfg, device, sm_clock_hz):
             t["bound_ms"] += calls * bound
             t["bytes_s"] += calls * bytes_s
             t["ops_s"] += calls * ops_s
+        del prep
     del flush
+    d = tot["delta_gemm"]
+    print(f"delta_gemm per served batch (k={DELTA_K}, rank {fac.rank}): "
+          f"kernel {d['ms']:.4f} ms, plain {d['plain_ms']:.4f} ms, bound "
+          f"{d['bound_ms']:.4f} ms ({'bytes' if d['bytes_s'] >= d['ops_s'] else 'f32 operations at 67 TFLOP/s'}); "
+          f"approx_gemm kernel {tot['approx_gemm']['ms']:.4f} ms, bound path "
+          f"(systolic_gemm + cuBLAS f32 correction) {d['bound_path_ms']:.4f} "
+          f"ms", flush=True)
     return tot
 
 
@@ -457,9 +562,10 @@ def serve_engine_full_width(cfg, backend):
     st = eng.stats
     steps = st["host_syncs"]                      # chunk steps (one sync each)
     print(f"{backend} engine stats: {json.dumps(st)}", flush=True)
+    gemm_kernel = GEMM_KERNEL[True, backend]
     expect = {name: (cfg.n_layers if name == "paged_attention" else
-                     (7 * cfg.n_layers + 1) if k["backend"] == backend else 0)
-              * steps for name, k in KERNELS.items()}
+                     (7 * cfg.n_layers + 1) if name == gemm_kernel else 0)
+              * steps for name in KERNELS}
     if launches != expect:
         raise AssertionError(f"{backend} engine: launches {launches}, "
                              f"expected {expect} over {steps} chunk steps")
@@ -622,6 +728,110 @@ def time_paged(cfg, device, recorded):
     return tot
 
 
+def check_delta(cfg, device):
+    """Phase 10: delta_gemm against its plain version (the kernel's K-block)
+    and the product-table kernel, bit for bit at the exact rank; the
+    truncated-rank routes. Returns max |err| of the exact-rank checks."""
+    shapes = sorted({(m, kd, n) for (_, kd, n) in slice_gemms(cfg)
+                     for m in (BATCH, BATCH * PROMPT)}) + ODD
+    worst, differing, n_checks = 0, 0, 0
+    for i, (m, kd, n) in enumerate(shapes):
+        a, b = _int8((m, kd), 2 * i, device), _int8((kd, n), 2 * i + 1, device)
+        for k in KS:
+            fac = error_delta.delta_factors(8, k)
+            f, g = error_delta.factor_tables(fac, device)
+            got = delta_gemm.delta_matmul_fused(a, b, f, g, rank=fac.rank)
+            torch.cuda.synchronize()
+            want = delta_matmul_fused_ref(a, b, f, g, rank=fac.rank,
+                                          bk=delta_gemm.KERNEL_BK)
+            table = approx_gemm.make_table(k, device=device)
+            lut = approx_gemm.approx_matmul_lut(a, b, table)
+            e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            worst = max(worst, e)
+            n_checks += 1
+            if e or not torch.equal(got, lut):
+                raise AssertionError(f"delta_gemm != plain or approx_gemm at "
+                                     f"{(m, kd, n)}, k={k} (rank {fac.rank})")
+        n_blocks = -(-kd // delta_gemm.KERNEL_BK)
+        for k, rank in DELTA_TRUNCATED:
+            table = approx_gemm.make_table(k, device=device)
+            # exact_cancel: the kernel at rank 0, correction + defect once
+            if not torch.equal(ops.approx_delta_matmul(a, b, k=k, rank=rank),
+                               approx_gemm.approx_matmul_lut(a, b, table)):
+                raise AssertionError(f"exact_cancel route != approx_gemm at "
+                                     f"{(m, kd, n)}, k={k}, rank {rank}")
+            fac = error_delta.delta_factors(8, k, rank=rank)
+            f, g = error_delta.factor_tables(fac, device)
+            got = ops.approx_delta_matmul(a, b, k=k, rank=rank,
+                                          apply_residual=False)
+            want = delta_matmul_fused_ref(a, b, f, g, rank=rank,
+                                          bk=delta_gemm.KERNEL_BK)
+            d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+            differing += int((d > 0).sum())
+            if int(d.max()) > n_blocks:
+                raise AssertionError(f"truncated delta_gemm off its plain "
+                                     f"version by {int(d.max())} > {n_blocks} "
+                                     f"K-blocks at {(m, kd, n)}, k={k}")
+    print(f"delta_gemm bit-exact vs its plain version and approx_gemm in "
+          f"{n_checks} checks ({len(shapes)} shapes, k={list(KS)}); "
+          f"exact_cancel route bit-exact at (k, rank) {list(DELTA_TRUNCATED)};"
+          f" without residual {differing} entries differ from the plain "
+          f"version (each within one per K-block)", flush=True)
+    return worst
+
+
+def check_apps(device):
+    """Phase 10: the paper's apps at 256 px. DCT and edge outputs
+    bit-identical under approx_lut and approx_delta, PSNR at or above the
+    Table-VI floors less TOL_DB; DCT under approx_oracle (the paper's PE
+    chain) and BDCN at k = 2 with its hybrid policy reported."""
+    img = images.test_image(APP_SIZE, 0)
+    blocks = images.to_blocks(img)
+    out = {}
+    for backend in ("approx_lut", "approx_delta"):
+        coeffs = {k: dct.forward_dct_blocks(blocks, k, policy=backend,
+                                            device=device)
+                  for k in (0, *PAPER_DCT_PSNR)}
+        resp = {k: edge.conv_gemm(img, edge.LAPLACIAN, k, policy=backend,
+                                  device=device)
+                for k in (0, *PAPER_EDGE_PSNR)}
+        out[backend] = coeffs, resp
+        res = dct.run(size=APP_SIZE, ks=tuple(PAPER_DCT_PSNR),
+                      policy=backend, device=device)
+        eres = edge.run(size=APP_SIZE, ks=tuple(PAPER_EDGE_PSNR),
+                        policy=backend, device=device)
+        for k, floor in PAPER_DCT_PSNR.items():
+            if not res[k]["psnr"] >= floor - TOL_DB:
+                raise AssertionError(f"DCT {backend} k={k}: PSNR "
+                                     f"{res[k]['psnr']} < {floor} - {TOL_DB}")
+        for k, floor in PAPER_EDGE_PSNR.items():
+            if not eres[k]["psnr"] >= floor - TOL_DB:
+                raise AssertionError(f"edge {backend} k={k}: PSNR "
+                                     f"{eres[k]['psnr']} < {floor} - {TOL_DB}")
+        print(f"{backend} at {APP_SIZE} px: DCT PSNR/SSIM "
+              + ", ".join(f"k{k} {v['psnr']:.2f} dB/{v['ssim']:.4f}"
+                          for k, v in res.items())
+              + "; edge " + ", ".join(f"k{k} {v['psnr']:.2f} dB/"
+                                      f"{v['ssim']:.4f}"
+                                      for k, v in eres.items()), flush=True)
+    for part, name in ((0, "DCT coefficients"), (1, "edge responses")):
+        for k, v in out["approx_lut"][part].items():
+            if not np.array_equal(v, out["approx_delta"][part][k]):
+                raise AssertionError(f"{name} differ between approx_lut and "
+                                     f"approx_delta at k={k}")
+    res = dct.run(size=APP_SIZE, ks=tuple(PAPER_DCT_PSNR), device=device)
+    print(f"DCT under approx_oracle (the PE chain) at {APP_SIZE} px: "
+          + ", ".join(f"k{k} {v['psnr']:.2f} dB/{v['ssim']:.4f}"
+                      for k, v in res.items()), flush=True)
+    for backend in ("approx_lut", "approx_delta"):
+        res = bdcn.run(size=APP_SIZE, ks=(2,), policy=backend, device=device)
+        if np.isnan(res[2]["psnr"]) or not 0.0 <= res[2]["ssim"] <= 1.0:
+            raise AssertionError(f"BDCN {backend}: PSNR/SSIM {res[2]}")
+        print(f"BDCN hybrid ({backend} blocks 0-1, exact 2-3) at {APP_SIZE} "
+              f"px, k=2: PSNR {res[2]['psnr']:.2f} dB, SSIM "
+              f"{res[2]['ssim']:.4f}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -640,21 +850,40 @@ def main() -> int:
           f"{sm_clock_hz / 1e6:.0f} MHz", flush=True)
     cfg = ARCHS[ARCH]
 
+    def phase(name):
+        print(f"[{time.perf_counter() - t0:.1f}s] {name}", flush=True)
+
     err = check_kernels(cfg, device)
     err["paged_attention"] = check_paged(device)
+    phase("delta kernel checks")
+    err["delta_gemm"] = check_delta(cfg, device)
     launches = {name: 0 for name in KERNELS}
-    for backend in ("mxu_int8", "approx_lut"):
-        for name, n in serve_full_width(cfg, backend).items():
+    streams = {}
+    phase("lockstep serving")
+    for backend in ("mxu_int8", "approx_lut", "approx_delta"):
+        n_launch, streams[backend] = serve_full_width(cfg, backend)
+        for name, n in n_launch.items():
             launches[name] += n
+    if not np.array_equal(streams["approx_delta"], streams["approx_lut"]):
+        raise AssertionError("approx_delta streams != approx_lut streams")
+    print("approx_delta lockstep streams == approx_lut's, bound and unbound",
+          flush=True)
     recorded = None
-    for backend in ("mxu_int8", "approx_lut"):
+    for backend in ("mxu_int8", "approx_lut", "approx_delta"):
+        phase(f"engine {backend}")
         n_launch, st, rec, idle = serve_engine_full_width(cfg, backend)
         for name, n in n_launch.items():
             launches[name] += n
         recorded = recorded or rec
+    phase("outputs")
     check_outputs(cfg, device)
+    phase("apps")
+    check_apps(device)
+    phase("decode traces")
     trace_decode()
+    phase("GEMM timings")
     tot = time_kernels(cfg, device, sm_clock_hz)
+    phase("paged-attention timings")
     tot["paged_attention"] = time_paged(cfg, device, recorded)
 
     entries = []

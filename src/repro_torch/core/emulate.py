@@ -1,10 +1,12 @@
 """Bit-level emulation of the paper's exact/approximate fused-MAC PE.
 
-Port of ``repro/core/emulate.py`` in numpy (``pe_mac`` and ``product_table``;
-the GEMM-chain oracle ``matmul_oracle`` comes with the ``approx_oracle``
-slice). The table is built once per configuration on the host, so numpy's
-native uint32 words carry the carry-save state exactly as the reference's
-jnp.uint32 words do.
+Port of ``repro/core/emulate.py``. ``pe_mac`` and ``product_table`` are numpy:
+the table is built once per configuration on the host, and numpy's native
+uint32 words carry the carry-save state exactly as the reference's jnp.uint32
+words do. ``pe_mac_t`` and the GEMM-chain oracle ``matmul_oracle`` run the same
+word-wide bit operations as torch ops on int64 words (every word is masked to
+``acc_bits`` <= 32 bits, so the low 32 bits, which are all that is kept, are
+those of the uint32 arithmetic), on the operands' device.
 
 The PE computes ``a*b + c`` (N-bit operands, ``acc_bits``-bit accumulator) via a
 carry-save array of PPC/NPPC cells; columns ``< k`` use the approximate cells of
@@ -19,6 +21,7 @@ import functools
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 U32 = np.uint32
 
@@ -137,3 +140,80 @@ def product_table(n_bits: int = 8, k: int = 0, signed: bool = True,
                  k=k, signed=signed, acc_bits=acc_bits).reshape(span, span)
     out.setflags(write=False)
     return out
+
+
+def _pe_mac_words(a_u: torch.Tensor, b_u: torch.Tensor, c_u: torch.Tensor,
+                  cfg: PEConfig) -> torch.Tensor:
+    """``_pe_mac_u32`` on int64 torch words (values < 2^acc_bits)."""
+    acc_mask = (1 << cfg.acc_bits) - 1
+    rows, const = _rows_and_masks(cfg)
+    s = (c_u + const) & acc_mask
+    c = torch.zeros_like(s)
+    k_mask = ((1 << cfg.k) - 1) if cfg.k > 0 else 0
+    ex_all = acc_mask
+    for ppc, nppc in rows:
+        e = torch.zeros_like(s)
+        m_ppc = 0
+        m_nppc = 0
+        for col, abit, bbit in ppc:
+            p = ((a_u >> abit) & 1) & ((b_u >> bbit) & 1)
+            e = e | (p << col)
+            m_ppc |= 1 << col
+        for col, abit, bbit in nppc:
+            q = (((a_u >> abit) & 1) & ((b_u >> bbit) & 1)) ^ 1
+            e = e | (q << col)
+            m_nppc |= 1 << col
+        ak = k_mask & (m_ppc | m_nppc)
+        ex = ~ak & ex_all
+        x = s ^ e
+        s_exact = x ^ c
+        c_exact = (s & e) | (c & x)
+        sc = s | c
+        s_ap = sc & ~e
+        c_an = sc & e
+        s_an = ~c_an
+        ap = ak & m_ppc
+        an = ak & m_nppc
+        s_new = (s_exact & ex) | (s_ap & ap) | (s_an & an)
+        c_new = (c_exact & ex) | (e & ap) | (c_an & an)
+        s, c = s_new & acc_mask, (c_new << 1) & acc_mask
+    return (s + c) & acc_mask
+
+
+def pe_mac_t(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+             n_bits: int = 8, k: int = 0, signed: bool = True,
+             acc_bits: int = 24) -> torch.Tensor:
+    """``pe_mac`` on torch tensors (broadcasting), int32 results."""
+    if acc_bits > 32:
+        raise ValueError(f"acc_bits must be <= 32, got {acc_bits}")
+    cfg = PEConfig(n_bits, k, signed, acc_bits)
+    a_u = a.to(torch.int64) & ((1 << n_bits) - 1)
+    b_u = b.to(torch.int64) & ((1 << n_bits) - 1)
+    c_u = c.to(torch.int64) & ((1 << acc_bits) - 1)
+    a_u, b_u, c_u = torch.broadcast_tensors(a_u, b_u, c_u)
+    out = _pe_mac_words(a_u, b_u, c_u, cfg)
+    if signed:
+        half, full = 1 << (acc_bits - 1), 1 << acc_bits
+        out = torch.where(out >= half, out - full, out)
+    return out.to(torch.int32)
+
+
+def matmul_oracle(a_mat: torch.Tensor, b_mat: torch.Tensor, *,
+                  n_bits: int = 8, k: int = 0, signed: bool = True,
+                  acc_bits: int = 24) -> torch.Tensor:
+    """GEMM through a chain of fused-MAC PEs, the systolic array's dataflow.
+
+    (M, K) x (K, N) integers -> (M, N) int32: the partial sum flows through
+    the same approximate PE for k = 0..K-1, as in the array. A K-step loop of
+    word-wide bit operations on (M, N) tensors, on the operands' device.
+    """
+    m_dim, k_dim = a_mat.shape
+    k2, n_dim = b_mat.shape
+    if k_dim != k2:
+        raise ValueError(f"matmul_oracle wants (M,K) x (K,N), got "
+                         f"{tuple(a_mat.shape)} x {tuple(b_mat.shape)}")
+    acc = torch.zeros((m_dim, n_dim), dtype=torch.int32, device=a_mat.device)
+    for kk in range(k_dim):
+        acc = pe_mac_t(a_mat[:, kk, None], b_mat[None, kk, :], acc,
+                       n_bits=n_bits, k=k, signed=signed, acc_bits=acc_bits)
+    return acc

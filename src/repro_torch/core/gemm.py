@@ -8,32 +8,42 @@ policy selects, per layer, which arithmetic executes it:
                    ``kernels/systolic_gemm``) -> dequantize.
 * ``approx_lut`` — int8 quantize -> approximate GEMM through the PE product
                    table at factor k (``kernels/approx_gemm``) -> dequantize.
+* ``approx_oracle`` — int8 quantize -> the bit-level fused-MAC PE chain
+                   (``core.emulate.matmul_oracle``, torch ops).
+* ``approx_onehot`` — the one-hot rewrite: the approximate GEMM as an exact
+                   f32 matrix product (``core.lut.onehot_matmul``).
+* ``approx_delta`` — exact int8 GEMM + rank-r error correction
+                   (``core/error_delta.py``): the fused kernel
+                   ``kernels/delta_gemm`` unbound; bound, the exact kernel
+                   ``kernels/systolic_gemm`` plus one f32 correction product.
+                   Bit-identical to ``approx_lut`` at the default (exact) rank.
 
-``approx_oracle``, ``approx_onehot`` and ``approx_delta`` are accepted as
-names and raise ``NotImplementedError`` until their slices are ported; so do
-grouped (MoE) GEMMs, operands prepared for the left side, and the ABFT
-guard (``guard != "none"``).
+Grouped (MoE) GEMMs and the ABFT guard (``guard != "none"``) raise
+``NotImplementedError`` until their slices are ported.
 
 ``dot`` accepts raw floats (quantize -> integer GEMM -> dequantize), raw
-integers (int32 out), or a right-hand ``PreparedOperand``: the paper's
-weight-stationary dataflow, where the fixed operand is quantized once and
-every call pays only for the moving operand. ``bind(params, policy)`` prepares
-a whole parameter tree. Bound and unbound calls give the same bits: the
-moving operand is quantized per row in both, the weights per output channel,
-and ``_dequant``/``_round_to`` pin the order of the float arithmetic.
+integers (int32 out), or a ``PreparedOperand`` on either side: the paper's
+weight-stationary dataflow, where the fixed operand is quantized and its
+backend factors (delta factor, one-hot table) built once, and every call pays
+only for the moving operand. ``bind(params, policy)`` prepares a whole
+parameter tree. Bound and unbound calls give the same bits: the moving
+operand is quantized per row in both, the weights per output channel, and
+``_dequant``/``_round_to`` pin the order of the float arithmetic.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from . import quant
+from . import emulate, error_delta, lut, quant
 
-BACKENDS = ("exact", "mxu_int8", "approx_lut", "approx_oracle", "approx_onehot",
-            "approx_delta")
+BACKENDS = ops.BACKENDS
 GUARDS = ("none", "detect", "recompute")     # GemmPolicy.guard modes
 
 
@@ -44,25 +54,36 @@ class GemmPolicy:
     `backend` is the default; `overrides` maps layer-name prefixes to backends
     (longest prefix wins; the empty prefix matches every layer), mirroring the
     paper's hybrid early-approx/late-exact BDCN. `k` is the approximation
-    factor for approximate backends. `guard` selects ABFT checking, which
-    waits for a later slice (only ``"none"`` runs). The ``approx_delta``
-    tuning fields (``delta_rank``, ``delta_tol``, ``delta_adaptive``) come
-    with that backend's slice.
+    factor for approximate backends. `delta_rank` / `delta_tol` tune the
+    ``approx_delta`` correction rank (None = exact rank, bit-identical to
+    ``approx_lut``). `delta_adaptive` picks the correction form per prepared
+    layer: when a layer's weight-restricted rank exceeds its output width,
+    ``resolve`` (given those hints by ``prepare_weights``) falls back to the
+    bit-identical ``approx_lut``. `guard` selects ABFT checking, which waits
+    for a later slice (only ``"none"`` runs).
     """
     backend: str = "exact"
     k: int = 4
     n_bits: int = 8
     acc_bits: int = 24
     overrides: Optional[Dict[str, str]] = None
+    delta_rank: Optional[int] = None
+    delta_tol: Optional[float] = None
+    delta_adaptive: bool = False
     guard: str = "none"
 
-    def resolve(self, layer: str = "") -> str:
+    def resolve(self, layer: str = "", *, out_width: Optional[int] = None,
+                delta_rank: Optional[int] = None) -> str:
         choice = self.backend
         best = None
         for prefix, be in (self.overrides or {}).items():
             if layer.startswith(prefix) and (best is None
                                              or len(prefix) > len(best)):
                 best, choice = prefix, be
+        if (choice == "approx_delta" and self.delta_adaptive
+                and out_width is not None and delta_rank is not None
+                and delta_rank > out_width):
+            return "approx_lut"
         return choice
 
 
@@ -98,19 +119,39 @@ def _int_gemm(x_q, w_q, backend: str, policy: GemmPolicy):
     if backend == "approx_lut":
         return ops.approx_matmul(x_q, w_q, k=policy.k, n_bits=policy.n_bits,
                                  acc_bits=policy.acc_bits)
-    if backend in ops.LATER_BACKENDS:
-        raise ops.not_ported(backend)
+    if backend == "approx_oracle":
+        return emulate.matmul_oracle(x_q, w_q, n_bits=policy.n_bits,
+                                     k=policy.k, acc_bits=policy.acc_bits)
+    if backend == "approx_onehot":
+        t_b = lut.build_onehot_weights(w_q, n_bits=policy.n_bits, k=policy.k,
+                                       acc_bits=policy.acc_bits)
+        return lut.onehot_matmul(x_q, t_b, n_bits=policy.n_bits)
+    if backend == "approx_delta":
+        return ops.approx_delta_matmul(x_q, w_q, k=policy.k,
+                                       n_bits=policy.n_bits,
+                                       acc_bits=policy.acc_bits,
+                                       rank=policy.delta_rank,
+                                       tol=policy.delta_tol)
     raise ValueError(f"unknown integer backend {backend!r}")
 
 
 def _check_prepared(prep, backend: str, policy: GemmPolicy, layer: str) -> None:
     mismatches = []
-    if prep.backend != backend:
+    # the adaptive form: prepare_weights may prepare an approx_delta layer
+    # for the bit-identical gather path; accepted only at the exact rank
+    adaptive_ok = (policy.delta_adaptive and backend == "approx_delta"
+                   and prep.backend == "approx_lut"
+                   and policy.delta_rank is None and policy.delta_tol is None)
+    if prep.backend != backend and not adaptive_ok:
         mismatches.append(f"backend {prep.backend!r} != {backend!r}")
     if prep.k != policy.k:
         mismatches.append(f"k {prep.k} != {policy.k}")
     if (prep.n_bits, prep.acc_bits) != (policy.n_bits, policy.acc_bits):
         mismatches.append("n_bits/acc_bits differ")
+    if (backend == "approx_delta" and not adaptive_ok
+            and (prep.rank, prep.tol) != (policy.delta_rank,
+                                          policy.delta_tol)):
+        mismatches.append("delta_rank/delta_tol differ")
     if mismatches:
         raise ValueError(
             f"prepared operand is stale for layer {layer!r}: "
@@ -152,38 +193,45 @@ def dot(a, b, policy: GemmPolicy = EXACT, *, layer: str = "",
       dequantized to the activations' dtype. ``exact`` is a float matmul.
     * **raw integers** — integer-in / int32-out under the layer's backend,
       batched operands flattened onto the 2-D kernels.
-    * **a right-hand ``PreparedOperand``** — the weight-stationary path
-      (``prepare_weights`` / ``bind``). With a ``scale`` (prepared from
-      floats) the call is float-in / float-out with only the moving operand
-      quantized per call; without one it is integer-in / int32-out.
+    * **a ``PreparedOperand``** on either side — the weight-stationary path
+      (``prepare_weights`` / ``bind``); its position must match the side it
+      was prepared for. With a ``scale`` (prepared from floats) the call is
+      float-in / float-out with only the moving operand quantized per call;
+      without one it is integer-in / int32-out.
     """
     policy = as_policy(policy, backend="exact")
     backend = policy.resolve(layer)
     if grouped:
         raise NotImplementedError("grouped (MoE) GEMMs come with the MoE "
                                   "slice, see ROADMAP.md")
-    if isinstance(a, ops.PreparedOperand):
-        raise NotImplementedError("operands prepared for the left side come "
-                                  "with the apps slice, see ROADMAP.md")
-    if isinstance(b, ops.PreparedOperand):
-        prep = b
-        if prep.side != "right":
+    a_prep = isinstance(a, ops.PreparedOperand)
+    b_prep = isinstance(b, ops.PreparedOperand)
+    if a_prep and b_prep:
+        raise ValueError("at most one operand may be prepared")
+    if a_prep or b_prep:
+        prep = a if a_prep else b
+        want_side = "left" if a_prep else "right"
+        if prep.side != want_side:
             raise ValueError(f"operand prepared for side {prep.side!r} passed "
-                             "as the right operand")
+                             f"as the {want_side} operand")
         _check_prepared(prep, backend, policy, layer)
-        if prep.scale is not None and not _is_float(a):
+        x = b if a_prep else a
+        if prep.scale is not None and not _is_float(x):
             raise ValueError(
                 f"layer {layer!r}: operand prepared from float weights "
                 "needs a float moving operand (got integer input)")
-        if prep.scale is None and _is_float(a):
+        if prep.scale is None and _is_float(x):
             raise ValueError(
                 f"layer {layer!r}: operand prepared from integer weights "
                 "used with float input — prepare from the float weights "
                 "instead so a dequantization scale is attached")
         if prep.scale is not None:
-            return _dot_float_prepared(a, prep, policy)
+            return _dot_float_prepared(x, prep, policy)
+        if a_prep:
+            mm = lambda _, bb: ops.prepared_matmul(bb, prep)  # noqa: E731
+            return ops.batched_app_matmul(mm, prep.values, x)
         mm = lambda aa, _: ops.prepared_matmul(aa, prep)      # noqa: E731
-        return ops.batched_app_matmul(mm, a, prep.values)
+        return ops.batched_app_matmul(mm, x, prep.values)
 
     if not (_is_float(a) or _is_float(b)):
         if backend == "exact":
@@ -196,7 +244,8 @@ def dot(a, b, policy: GemmPolicy = EXACT, *, layer: str = "",
     if b.dim() != 2:
         raise ValueError(
             f"layer {layer!r}: the float path needs a 2-D right-hand weight "
-            f"(got {tuple(a.shape)} x {tuple(b.shape)})")
+            f"(got {tuple(a.shape)} x {tuple(b.shape)}); use "
+            "prepare_weights(side='left') for fixed left operands")
     lead = a.shape[:-1]
     x2 = a.reshape(-1, a.shape[-1])
     xq = quant.quantize(x2, n_bits=policy.n_bits, axis=-1)  # per-row (token)
@@ -207,18 +256,26 @@ def dot(a, b, policy: GemmPolicy = EXACT, *, layer: str = "",
 
 
 def _dot_float_prepared(x, prep, policy: GemmPolicy) -> torch.Tensor:
-    """Float-in/float-out against a float-prepared right-hand operand.
+    """Float-in/float-out against a float-prepared fixed operand.
 
     Mirrors the unprepared float path bit for bit: the moving operand is
-    quantized per row exactly as there, the integer GEMM is the same kernel,
-    and the dequantization multiplies the same two scales.
+    quantized per row (per column when the fixed operand is on the left)
+    exactly as there, the integer GEMM is the same backend, and the
+    dequantization multiplies the same two scales.
     """
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    xq = quant.quantize(x2, n_bits=policy.n_bits, axis=-1)        # per-row
-    acc = ops.prepared_matmul(xq.values, prep)
-    out = _dequant(acc, xq.scale, prep.scale)             # (R, 1) x (1, N)
-    return _round_to(out.reshape(*lead, prep.values.shape[-1]), x.dtype)
+    if prep.side == "right":
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        xq = quant.quantize(x2, n_bits=policy.n_bits, axis=-1)    # per-row
+        acc = ops.prepared_matmul(xq.values, prep)
+        out = _dequant(acc, xq.scale, prep.scale)         # (R, 1) x (1, N)
+        return _round_to(out.reshape(*lead, prep.values.shape[-1]), x.dtype)
+    # fixed left operand W (M, K) x moving (..., K, N)
+    xq = quant.quantize(x, n_bits=policy.n_bits, axis=-2)         # per-column
+    mm = lambda _, bb: ops.prepared_matmul(bb, prep)              # noqa: E731
+    acc = ops.batched_app_matmul(mm, prep.values, xq.values)
+    out = _dequant(acc, xq.scale, prep.scale)         # (M, 1) x (..., 1, N)
+    return _round_to(out, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -226,17 +283,21 @@ def _dot_float_prepared(x, prep, policy: GemmPolicy) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def prepare_weights(w, policy: GemmPolicy, *, layer: str = "",
-                    side: str = "right"):
+                    side: str = "right", restrict: bool = True):
     """Precompute the backend-specific form of a fixed 2-D weight matrix.
 
     Returns a ``kernels.ops.PreparedOperand`` that ``dot`` accepts in place of
     the raw matrix. Integer weights prepare as they are (integer-in/int32-out
-    calls); **float** weights are quantized per output channel first and the
-    scale is attached, so ``dot`` quantizes only the moving activations.
+    calls); **float** weights are quantized per output channel first (the
+    second-to-last axis for ``side="right"``, the last for ``side="left"``)
+    and the scale is attached, so ``dot`` quantizes only the moving operand.
+
+    ``approx_delta`` builds the rank-r ``G_B`` (``F_A`` on the left) once,
+    weight-restricted unless ``restrict=False``; ``approx_onehot`` the
+    ``T_B`` table. Under ``policy.delta_adaptive`` (exact rank, restricted
+    preparation only) an ``approx_delta`` layer whose restricted rank exceeds
+    its output width is prepared for the bit-identical ``approx_lut``.
     """
-    if side != "right":
-        raise NotImplementedError("operands prepared for the left side come "
-                                  "with the apps slice, see ROADMAP.md")
     backend = policy.resolve(layer)
     scale = None
     if _is_float(w):
@@ -244,12 +305,53 @@ def prepare_weights(w, policy: GemmPolicy, *, layer: str = "",
             raise ValueError(
                 f"layer {layer!r} resolves to the exact float backend — "
                 "nothing to prepare; pass the raw weights to dot()")
-        wq = quant.quantize(w, n_bits=policy.n_bits, axis=-2)
+        axis = -2 if side == "right" else -1
+        wq = quant.quantize(w, n_bits=policy.n_bits, axis=axis)
         w, scale = wq.values, wq.scale
+    if (backend == "approx_delta" and policy.delta_adaptive and restrict
+            and policy.delta_rank is None and policy.delta_tol is None):
+        r_eff = error_delta.restricted_rank(
+            w, side=side, n_bits=policy.n_bits, k=policy.k,
+            acc_bits=policy.acc_bits)
+        out_w = w.shape[-1] if side == "right" else w.shape[-2]
+        backend = policy.resolve(layer, out_width=out_w, delta_rank=r_eff)
     prep = ops.prepare_operand(w, backend=backend, k=policy.k,
                                n_bits=policy.n_bits, acc_bits=policy.acc_bits,
-                               side=side)
+                               side=side, rank=policy.delta_rank,
+                               tol=policy.delta_tol, restrict=restrict)
     return dataclasses.replace(prep, scale=scale) if scale is not None else prep
+
+
+_PREPARED_CACHE: "OrderedDict[tuple, Any]" = OrderedDict()
+_PREPARED_CACHE_MAX = 256
+
+
+def prepare_weights_cached(w: torch.Tensor, policy: GemmPolicy, *,
+                           layer: str = "", side: str = "right",
+                           restrict: bool = True):
+    """``prepare_weights`` memoized by weight value and policy fields.
+
+    For fixed matrices met again and again (the DCT matrix, convolution
+    kernels): keys hold a 16-byte BLAKE2b digest of the weight bytes with
+    their shape, dtype and device, so repeated calls reuse the preparation.
+    Eviction is LRU.
+    """
+    w_np = np.ascontiguousarray(w.detach().cpu().numpy())
+    digest = hashlib.blake2b(w_np.tobytes(), digest_size=16).digest()
+    key = (digest, w_np.shape, w_np.dtype.str, str(w.device),
+           policy.resolve(layer), policy.k, policy.n_bits, policy.acc_bits,
+           policy.delta_rank, policy.delta_tol, policy.delta_adaptive, side,
+           restrict)
+    hit = _PREPARED_CACHE.get(key)
+    if hit is not None:
+        _PREPARED_CACHE.move_to_end(key)
+        return hit
+    hit = prepare_weights(w, policy, layer=layer, side=side,
+                          restrict=restrict)
+    _PREPARED_CACHE[key] = hit
+    while len(_PREPARED_CACHE) > _PREPARED_CACHE_MAX:
+        _PREPARED_CACHE.popitem(last=False)
+    return hit
 
 
 class BoundParams(dict):
@@ -307,7 +409,10 @@ def bind(params, policy: GemmPolicy, *, tie_lm_head: bool = True) -> Any:
     channel once. Other leaves and already-prepared leaves pass through, so
     ``bind`` is idempotent. The port keeps per-layer weights as a list of
     dicts, so each layer's leaf is prepared on its own (the reference
-    prepares the stacked leaf in one pass: the same values and scales).
+    prepares the stacked leaf in one pass: the same values and scales). As
+    there, the layer leaves take ``approx_delta``'s generic rank
+    (``restrict=False``) and the other 2-D leaves (``lm_head``) the
+    weight-restricted one.
 
     With ``tie_lm_head``, a model with tied embeddings gets a prepared
     ``lm_head`` entry built from ``embed.T`` when ``"lm_head"`` resolves
@@ -320,7 +425,10 @@ def bind(params, policy: GemmPolicy, *, tie_lm_head: bool = True) -> Any:
                 or not w.is_floating_point()
                 or policy.resolve(name) == "exact"):
             return w
-        return prepare_weights(w, policy, layer=name)
+        # the reference prepares the stacked layer leaves with the generic
+        # (unrestricted) delta rank and 2-D leaves with the restricted one
+        return prepare_weights(w, policy, layer=name,
+                               restrict=path[:1] != ("layers",))
 
     out = BoundParams(_map_tree(params, leaf))
     if (tie_lm_head and "embed" in out and "lm_head" not in out

@@ -10,6 +10,8 @@ card. They run on any device.
   product-table gathers with exact int32 accumulation over K.
 * ``paged_attention_ref`` — attention over a paged KV pool: the block-table
   gather path of ``models.layers.chunked_attention``.
+* ``delta_matmul_fused_ref`` — the exact int8 base plus the rank-r f32
+  correction of the error-delta decomposition, rounded per K-block.
 """
 from __future__ import annotations
 
@@ -63,3 +65,36 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return chunked_attention(q, k_pool, v_pool, q_positions, kv_valid_len,
                              causal=causal, window=window, softcap=softcap,
                              chunk=chunk, block_tables=block_tables)
+
+
+def delta_matmul_fused_ref(a_s: torch.Tensor, b_s: torch.Tensor,
+                           f_flat: torch.Tensor, g_flat: torch.Tensor, *,
+                           rank: int, span: int = 256,
+                           bk: int = 256) -> torch.Tensor:
+    """What ``delta_gemm.delta_matmul_fused`` computes, block by block:
+    ``sum over K-blocks of bk rows of [a_s @ b_s + round(sum_j F_j @ G_j)]``
+    with ``F_j[m, kk] = f_flat[a_u[m, kk] * rank + j]`` and ``G_j[kk, n] =
+    g_flat[j * span + b_u[kk, n]]``.
+
+    The base is exact (``systolic_matmul_ref``); each block's correction is an
+    f32 sum of the r rank-one products in the reference's order (one f32
+    matrix product per j, added in turn) and rounded half to even. At the
+    exact rank every block's correction rounds to the same integer whatever
+    ``bk`` and the summation order; at a truncated rank it depends on both.
+    """
+    out = systolic_matmul_ref(a_s, b_s)
+    if not rank:
+        return out
+    mask = span - 1
+    kd = a_s.shape[1]
+    a_u = a_s.to(torch.int64) & mask
+    b_u = b_s.to(torch.int64) & mask
+    f_t = f_flat.reshape(span, rank)
+    g_t = g_flat.reshape(rank, span)
+    for k0 in range(0, kd, bk):
+        au, bu = a_u[:, k0:k0 + bk], b_u[k0:k0 + bk]
+        corr = torch.zeros(out.shape, dtype=torch.float32, device=a_s.device)
+        for j in range(rank):
+            corr += torch.matmul(f_t[au, j], g_t[j][bu])
+        out += torch.round(corr).to(torch.int32)
+    return out

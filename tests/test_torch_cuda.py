@@ -8,7 +8,9 @@ has none); run it there without the JAX package's conftest:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The GEMM kernels are held bit-exact against their plain versions: both
-compute integer sums exactly. The paged-attention kernel sums in another
+compute integer sums exactly (the delta kernel at the exact rank, where each
+block's f32 correction rounds to an integer whatever the summation order; at
+a truncated rank without the residual within one per K-block). The paged-attention kernel sums in another
 order than its plain version (the gather path on cuBLAS f32 einsums, TF32
 off), so it is held to a tolerance: with f32 q and pools within
 ``F32_ATOL``; with bf16 outputs within one bf16 ulp (``BF16_RTOL`` = 2^-7 of
@@ -18,10 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (approx_gemm, ops, paged_attention,
-                                 systolic_gemm)
-from repro_torch.kernels.ref import (approx_matmul_ref, paged_attention_ref,
-                                     systolic_matmul_ref)
+from repro_torch.core import error_delta
+from repro_torch.kernels import (approx_gemm, delta_gemm, ops,
+                                 paged_attention, systolic_gemm)
+from repro_torch.kernels.ref import (approx_matmul_ref, delta_matmul_fused_ref,
+                                     paged_attention_ref, systolic_matmul_ref)
 
 pytestmark = pytest.mark.cuda
 F32_ATOL = 1e-5
@@ -114,6 +117,90 @@ def test_reduced_server_on_card(device, backend):
     np.testing.assert_array_equal(bound, serve.main(argv + ["--no-bind"]))
     assert ((bound >= 0) & (bound < 256)).all()
 
+
+
+def _delta(a, b, k, rank=None):
+    """delta_gemm at factor k against its plain version (the kernel's block)
+    and, at the exact rank, against the product-table kernel's plain version."""
+    fac = error_delta.delta_factors(8, k, rank=rank)
+    f, g = error_delta.factor_tables(fac, a.device)
+    before = delta_gemm.launches
+    got = delta_gemm.delta_matmul_fused(a, b, f, g, rank=fac.rank)
+    torch.cuda.synchronize()
+    assert delta_gemm.launches == before + 1
+    want = delta_matmul_fused_ref(a, b, f, g, rank=fac.rank,
+                                  bk=delta_gemm.KERNEL_BK)
+    return fac, got, want
+
+
+@pytest.mark.parametrize("m,kd,n", SHAPES)
+def test_delta_gemm_matches_plain(device, m, kd, n):
+    a, b = _int8((m, kd), 11, device), _int8((kd, n), 12, device)
+    for k in (0, 2, 4, 6, 8):
+        fac, got, want = _delta(a, b, k)
+        assert torch.equal(got, want), k
+        table = approx_gemm.make_table(k, device=device)
+        assert torch.equal(got, approx_matmul_ref(a, b, table.flat,
+                                                  span=table.span)), k
+    # truncated rank, no residual: per-block rounding of a non-integer sum
+    n_blocks = -(-kd // delta_gemm.KERNEL_BK)
+    for k, rank in ((6, 3), (8, 10)):
+        _, got, want = _delta(a, b, k, rank)
+        assert (got.long() - want.long()).abs().max().item() <= n_blocks
+
+
+def test_delta_gemm_tables_from_global_memory(device):
+    """Rank 120 at k = 8 (exact: the rank passes 62) needs 240 KB of f and
+    g, more than a block's shared memory: the kernel reads them through the
+    L2 and stays bit-exact."""
+    b = _int8((300, 70), 14, device)
+    for m in (6, 40):
+        fac, got, want = _delta(_int8((m, 300), 13 + m, device), b, 8, 120)
+        assert fac.exact and torch.equal(got, want)
+
+
+def test_approx_delta_routes_on_card(device):
+    """The exact rank and the truncated rank with residual (the kernel at
+    rank 0, then correction + defect rounded once) equal the table GEMM."""
+    a, b = _int8((5, 200), 16, device), _int8((200, 33), 17, device)
+    want = ops.approx_matmul(a, b, k=6)
+    for rank in (None, 4, 0):
+        before = delta_gemm.launches
+        assert torch.equal(ops.approx_delta_matmul(a, b, k=6, rank=rank), want)
+        assert delta_gemm.launches == before + 1
+    prep = ops.prepare_operand(b, backend="approx_delta", k=6)
+    before = (delta_gemm.launches, systolic_gemm.launches)
+    assert torch.equal(ops.prepared_matmul(a, prep), want)
+    assert (delta_gemm.launches, systolic_gemm.launches) == (before[0],
+                                                             before[1] + 1)
+
+
+@pytest.mark.parametrize("bind", [True, False])
+def test_reduced_server_approx_delta_on_card(device, bind):
+    """approx_delta on the card: unbound every GEMM through delta_gemm,
+    bound through the exact kernel plus the f32 correction; streams and
+    prefill logits equal approx_lut's bit for bit."""
+    from repro_torch.launch import serve
+    flag = [] if bind else ["--no-bind"]
+    argv = ["--debug", "--gen-len", "4"] + flag
+    before = (delta_gemm.launches, systolic_gemm.launches)
+    got = serve.main(argv + ["--backend", "approx_delta"])
+    n = 4 * (7 * 2 + 1)
+    assert (delta_gemm.launches - before[0],
+            systolic_gemm.launches - before[1]) == ((0, n) if bind else (n, 0))
+    np.testing.assert_array_equal(got, serve.main(argv + ["--backend",
+                                                          "approx_lut"]))
+    args = serve.build_parser().parse_args(argv + ["--backend",
+                                                    "approx_delta"])
+    cfg, model, params, policy, prompts = serve.setup(args)
+    logits = {}
+    for backend in ("approx_delta", "approx_lut"):
+        args.backend = backend
+        _, _, params, policy, _ = serve.setup(args)
+        logits[backend], _ = model.prefill(
+            params, {"tokens": prompts},
+            model.init_cache(*prompts.shape, device=device), policy=policy)
+    assert torch.equal(logits["approx_delta"], logits["approx_lut"])
 
 
 def paged_inputs(seed, *, b, sq, h, kh, d, bs, width, kvl, q_dtype, kv_dtype,
