@@ -819,6 +819,24 @@ def check_apps(device):
             if not np.array_equal(v, out["approx_delta"][part][k]):
                 raise AssertionError(f"{name} differ between approx_lut and "
                                      f"approx_delta at k={k}")
+    # The card's app outputs equal the CPU plain versions' bit for bit: the
+    # PE chain (torch word ops) and both kernel backends on the same image.
+    cpu = torch.device("cpu")
+    card = {"approx_oracle": dct.forward_dct_blocks(
+        blocks, 4, policy="approx_oracle", device=device)}
+    card.update({b: out[b][0][4] for b in ("approx_lut", "approx_delta")})
+    for backend, v in card.items():
+        ref = dct.forward_dct_blocks(blocks, 4, policy=backend, device=cpu)
+        if not np.array_equal(v, ref):
+            raise AssertionError(f"DCT {backend} k=4: card and CPU differ in "
+                                 f"{int((v != ref).sum())} of {v.size}")
+    for backend in ("approx_lut", "approx_delta"):
+        ref = edge.conv_gemm(img, edge.LAPLACIAN, 2, policy=backend,
+                             device=cpu)
+        if not np.array_equal(out[backend][1][2], ref):
+            raise AssertionError(f"edge {backend} k=2: card and CPU differ")
+    print(f"{APP_SIZE} px DCT at k=4 ({', '.join(card)}) and edge at k=2 "
+          f"(approx_lut, approx_delta): card == CPU bit for bit", flush=True)
     res = dct.run(size=APP_SIZE, ks=tuple(PAPER_DCT_PSNR), device=device)
     print(f"DCT under approx_oracle (the PE chain) at {APP_SIZE} px: "
           + ", ".join(f"k{k} {v['psnr']:.2f} dB/{v['ssim']:.4f}"
