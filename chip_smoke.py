@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero before the result lines are printed):
 
-1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, in parallel) and print the card's name and power limit.
+1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (five
+   sources, one ``nvcc`` each, in parallel) and print the card's name and
+   power limit.
 2. Hold each kernel bit-exact against its plain PyTorch version on the card,
    at every GEMM shape of the served model (smollm-360m: K x N in
    {960x960, 960x320, 960x2560, 2560x960, 960x49152}, M in {4, 64}) and at
@@ -16,11 +17,12 @@ Phases (any failure exits non-zero before the result lines are printed):
    gen 16, bound) under ``mxu_int8`` and ``approx_lut``: one warm-up run,
    then the bound run and an unbound run, each with the launch counters set
    to 0 just before and read just after: the backend's kernel must run once
-   per model GEMM, n_forwards * (7 * n_layers + 1) times, and the unbound
-   streams must equal the bound ones bit for bit.
+   per model GEMM, n_forwards * (7 * n_layers + 1) times, the flash-attention
+   kernel once per layer of the prefill (n_layers times), every other kernel
+   never, and the unbound streams must equal the bound ones bit for bit.
 4. Check outputs: tokens in range; full-width logits finite; on a small
    (reduced) model the card's logits agree with the CPU's plain versions.
-5. Trace 8 decode steps of the same configuration with
+5. Trace 4 decode steps of the same configuration with
    ``repro_torch.launch.trace_serve`` (host wall ms against device busy ms)
    under ``mxu_int8``, ``approx_lut``, ``exact`` and ``approx_delta`` (bound
    and unbound).
@@ -68,19 +70,50 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``approx_oracle`` and BDCN (k = 2, hybrid policy). The delta kernel timed
    with phase 6, beside the product-table kernel and the bound path
    (``systolic_gemm`` + cuBLAS f32 correction) on the same products.
+11. The flash-attention kernel against its plain version (the chunked
+   attention) within ``ATTN_RTOL`` plus ``ATTN_ATOL``, bf16, at the served
+   shapes (``FLASH_SHAPES``): smollm-360m's prefill (batch 4, 16 tokens,
+   15/5 heads, head dim 64), gemma3-12b's 2048-token prefill on a local
+   (window 1024) and a global layer (16/8 heads, head dim 256), gemma2-27b's
+   attention (32/16 heads, head dim 128, softcap 50, window 4096) at 4608
+   tokens, ragged per-batch live lengths causal and not. Then timed there
+   with its plain version and ``scaled_dot_product_attention`` (same
+   inputs and mask; none with a softcap), beside the bound (live-pair f32
+   flops at the f32 peak, or the bytes read and written once).
+12. gemma3-12b at its full published width (48 layers, d_model 3840, 16/8
+   heads, head dim 256, d_ff 15360, vocab 262144, bf16, random weights from
+   seed 0), bound under ``mxu_int8``: lockstep through ``serve.main``
+   (flash kernel at every prefill layer, launches counted) and the engine on
+   the 16-request trace of phase 8 (``paged_attention`` at head dim 256, 48
+   launches per chunk step), every engine stream equal to the lockstep
+   stream of its prompt or a flagged tie; the engine's idle share (as in
+   phase 8) and ``paged_attention`` timed at every chunk step of that trace
+   (as in phase 9, 48 layers per step).
+13. gemma3-12b's 2048-token prefill (batch 1) over a ``windowed=False``
+   cache, past the 1024-token window: 48 flash launches; its last-position
+   logits within ``LOGIT_ULPS`` bf16 ulps at the largest |logit|
+   (``LOGIT_ATOL``'s 4 ulps, which it states for |logit| < 8), or twice
+   the drift of the plain attention's logits under another order of its
+   sums (``WINDOW_REORDER_BK``), whichever is larger, of the same
+   prefill with the route's entry
+   (``models.layers.flash_attention``) replaced by the plain version, argmax
+   equal or a flagged tie.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``launches`` in it counts
 the kernel's launches over every counted main-path run (lockstep and engine,
-both backends). The GEMM kernels' times are totals over one lockstep served
-batch (each shape's time times its number of calls), the paged-attention
-kernel's over one engine served batch. ``torch._int_mm`` refuses M <= 16, so
+both backends, and gemma3-12b's). The GEMM kernels' times are totals over
+one lockstep served batch (each shape's time times its number of calls),
+the paged-attention kernel's over one engine served batch, the
+flash-attention kernel's over gemma3-12b's 2048-token prefill (40 local and
+8 global layers). ``torch._int_mm`` refuses M <= 16, so
 at the decode GEMMs (M = 4) it multiplies the moving operand zero-padded to
 32 rows (padded outside the timed call) and its first M rows, held equal to
 the kernel's output, are the product. No PyTorch call computes the table
 GEMM or the delta GEMM: their ``library_ms`` are null.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -98,14 +131,17 @@ from repro_torch.core import error_delta, gemm  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.kernels import (_build, approx_gemm,  # noqa: E402
-                                 delta_gemm, ops, paged_attention,
-                                 systolic_gemm)
+                                 delta_gemm, flash_attention, ops,
+                                 paged_attention, systolic_gemm)
 from repro_torch.kernels.ref import (approx_matmul_ref,  # noqa: E402
                                      delta_matmul_fused_ref,
-                                     paged_attention_ref, systolic_matmul_ref)
+                                     flash_attention_ref, paged_attention_ref,
+                                     systolic_matmul_ref)
 from repro_torch.launch import engine, serve, trace_serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.layers import cache_load  # noqa: E402
+from repro_torch.models.transformer import layer_windows  # noqa: E402
 
 ARCH = "smollm-360m"
 BATCH, PROMPT, GEN = 4, 16, 16          # serve.main's CLI defaults
@@ -127,6 +163,13 @@ PAPER_EDGE_PSNR = {2: 30.45, 4: 20.51}
 TOL_DB = 0.5
 APP_SIZE = 256
 LOGIT_ATOL = 0.125   # 4 bf16 ulps at |logit| < 8: float ops round differently
+LOGIT_ULPS = 4       # the same 4 bf16 ulps where logits are larger
+# gemma3-12b's window prefill is held to the larger of LOGIT_ULPS ulps at its
+# top logit and twice the drift of the plain attention's own logits when only
+# the order of its f32 sums changes (keys in chunks of this many instead of
+# the route's 1024): outputs one bf16 ulp apart move int8 activation levels,
+# and 48 layers amplify those moves, whatever computes the attention
+WINDOW_REORDER_BK = 256
 # paged attention against the gather path: both round the f32 result to bf16
 # once, after sums taken in another order, so one bf16 ulp (2^-7 of the
 # value) plus an absolute term for sums that cancel near zero
@@ -136,7 +179,7 @@ ENGINE_ARGS = ["--engine", "--batch", "4", "--prompt-len", "48",
                "--gen-len", "16", "--block-size", "8", "--prefill-chunk", "8"]
 N_REQUESTS, SYSTEM_LEN = 16, 16
 TRACE_WINDOW = (8, 16)                  # chunk steps traced by the profiler
-TRACE_DECODE_STEPS = 8                  # lockstep decode steps traced
+TRACE_DECODE_STEPS = 4                  # lockstep decode steps traced
 KERNELS = {
     "systolic_gemm": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/systolic_gemm.cu",
@@ -152,6 +195,11 @@ KERNELS = {
     "delta_gemm": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/delta_gemm.cu",
         replaces="src/repro/kernels/delta_gemm.py:123", module=delta_gemm),
+    "flash_attention": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:148",
+        module=flash_attention),
 }
 # the kernel that runs every model GEMM of a backend, bound and unbound
 GEMM_KERNEL = {
@@ -229,8 +277,9 @@ def _counted(fn):
     return out, {name: k["module"].launches for name, k in KERNELS.items()}
 
 
-def _check_launches(what, launches, kernel, n):
-    expect = {name: n if name == kernel else 0 for name in KERNELS}
+def _check_launches(what, launches, counts):
+    """launches must equal ``counts`` ({kernel: n}) and be 0 elsewhere."""
+    expect = {name: counts.get(name, 0) for name in KERNELS}
     if launches != expect:
         raise AssertionError(f"{what}: launches {launches}, expected {expect}")
 
@@ -243,8 +292,11 @@ def serve_full_width(cfg, backend):
     serve.main(argv)             # warm-up: first-call set-up stays out
     want = GEN * (7 * cfg.n_layers + 1)
     bound, launches = _counted(lambda: serve.main(argv))
-    _check_launches(f"{backend} bound", launches, GEMM_KERNEL[True, backend],
-                    want)
+    # every model GEMM through the backend's kernel; the prefill's attention
+    # through the flash kernel, once per layer
+    _check_launches(f"{backend} bound", launches,
+                    {GEMM_KERNEL[True, backend]: want,
+                     "flash_attention": cfg.n_layers})
     if bound.shape != (BATCH, GEN) or not ((bound >= 0)
                                            & (bound < cfg.vocab_size)).all():
         raise AssertionError(f"{backend}: bad token stream {bound}")
@@ -253,7 +305,8 @@ def serve_full_width(cfg, backend):
         raise AssertionError(f"{backend}: bound != unbound streams\n{bound}\n"
                              f"{unbound}")
     _check_launches(f"{backend} unbound", un_launches,
-                    GEMM_KERNEL[False, backend], want)
+                    {GEMM_KERNEL[False, backend]: want,
+                     "flash_attention": cfg.n_layers})
     launches = {n: launches[n] + un_launches[n] for n in KERNELS}
     print(f"{backend}: {launches} launches in the counted runs; bound == "
           f"unbound", flush=True)
@@ -547,6 +600,35 @@ def _fresh(reqs):
             for r in reqs]
 
 
+def _streams_vs_lockstep(what, cfg, model, params, policy, reqs, finished):
+    """Each request's engine stream against the lockstep stream of its
+    prompt alone: equal, or a flagged tie at the first differing token.
+    Returns the number of flagged ties."""
+    ties = 0
+    for r in reqs:
+        margins = []
+        want = serve.lockstep_generate(
+            cfg, model, params,
+            torch.from_numpy(r.prompt[None].astype(np.int64)).to(
+                params["embed"].device), r.max_new_tokens, policy=policy,
+            margins=margins)[0]
+        got = finished[r.rid].tokens
+        if got.shape != want.shape or not ((got >= 0)
+                                           & (got < cfg.vocab_size)).all():
+            raise AssertionError(f"{what}: bad stream {got}")
+        diff = np.nonzero(got != want)[0]
+        if diff.size:
+            margin = float(margins[int(diff[0])][0])
+            if margin > LOGIT_ATOL:
+                raise AssertionError(
+                    f"{what}: rid {r.rid} differs from lockstep at token "
+                    f"{int(diff[0])} with top-2 margin {margin}")
+            ties += 1
+            print(f"{what}: flagged tie, rid {r.rid} token {int(diff[0])} "
+                  f"(lockstep top-2 margin {margin})", flush=True)
+    return ties
+
+
 def serve_engine_full_width(cfg, backend):
     """Phase 8 for one backend. Returns (launches, stats, recorded chunk-step
     inputs, idle share)."""
@@ -573,29 +655,8 @@ def serve_engine_full_width(cfg, backend):
             and st["finished"] == N_REQUESTS):
         raise AssertionError(f"{backend} engine: no prefix hit or COW copy, "
                              f"or unfinished requests: {st}")
-    ties = 0
-    for r in reqs:
-        margins = []
-        want = serve.lockstep_generate(
-            cfg, model, params,
-            torch.from_numpy(r.prompt[None].astype(np.int64)).to(
-                params["embed"].device), r.max_new_tokens, policy=policy,
-            margins=margins)[0]
-        got = finished[r.rid].tokens
-        if got.shape != want.shape or not ((got >= 0)
-                                           & (got < cfg.vocab_size)).all():
-            raise AssertionError(f"{backend} engine: bad stream {got}")
-        diff = np.nonzero(got != want)[0]
-        if diff.size:
-            margin = float(margins[int(diff[0])][0])
-            if margin > LOGIT_ATOL:
-                raise AssertionError(
-                    f"{backend} engine: rid {r.rid} differs from lockstep at "
-                    f"token {int(diff[0])} with top-2 margin {margin}")
-            ties += 1
-            print(f"{backend} engine: flagged tie, rid {r.rid} token "
-                  f"{int(diff[0])} (lockstep top-2 margin {margin})",
-                  flush=True)
+    ties = _streams_vs_lockstep(f"{backend} engine", cfg, model, params,
+                                policy, reqs, finished)
     print(f"{backend} engine: {N_REQUESTS} streams equal to lockstep "
           f"({ties} flagged ties); launches {launches} over {steps} chunk "
           f"steps", flush=True)
@@ -850,6 +911,266 @@ def check_apps(device):
               f"{res[2]['ssim']:.4f}", flush=True)
 
 
+# Flash attention at the served shapes: (name, B, H, KH, Sq, Skv, D, causal,
+# window, softcap, kv_valid_len). smollm-360m's lockstep prefill; gemma3-12b's
+# 2048-token prefill on a local (window 1024) and a global layer;
+# gemma2-27b's attention (softcap 50, window 4096) at 4608 tokens; ragged
+# per-batch live lengths, causal and not.
+FLASH_SHAPES = [
+    ("smollm-360m prefill", BATCH, 15, 5, PROMPT, PROMPT, 64, True, 0, 0.0,
+     None),
+    ("gemma3-12b local", 1, 16, 8, 2048, 2048, 256, True, 1024, 0.0, None),
+    ("gemma3-12b global", 1, 16, 8, 2048, 2048, 256, True, 0, 0.0, None),
+    ("gemma2-27b local", 1, 32, 16, 4608, 4608, 128, True, 4096, 50.0, None),
+    ("ragged causal", 3, 15, 5, 96, 128, 64, True, 0, 0.0, [40, 97, 128]),
+    ("ragged non-causal", 3, 16, 8, 300, 512, 256, False, 0, 0.0,
+     [100, 400, 512]),
+]
+GEMMA3 = "gemma3-12b"
+GEMMA3_WINDOW_PROMPT = 2048      # 2x gemma3-12b's 1024-token window
+
+
+def _flash_inputs(seed, b, h, kh, sq, skv, d, kvl, device):
+    """bf16 q/k/v as the model's route hands them over: (B, H, S, D)
+    transposed views of (B, S, H, D) tensors; kv_valid_len on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=device).to(
+        torch.bfloat16).transpose(1, 2) for s, n in ((sq, h), (skv, kh),
+                                                    (skv, kh)))
+    if isinstance(kvl, list):
+        kvl = torch.tensor(kvl, dtype=torch.int32, device=device)
+    return q, k, v, kvl
+
+
+def check_flash(device):
+    """The flash-attention kernel against its plain version at
+    FLASH_SHAPES; returns max |err|."""
+    worst = 0.0
+    for i, (name, b, h, kh, sq, skv, d, causal, window, softcap,
+            kvl) in enumerate(FLASH_SHAPES):
+        q, k, v, kvl = _flash_inputs(i, b, h, kh, sq, skv, d, kvl, device)
+        kw = dict(kv_valid_len=kvl, causal=causal, window=window,
+                  softcap=softcap)
+        got = flash_attention.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, **kw).float()
+        err = (got.float() - want).abs()
+        worst = max(worst, float(err.max()))
+        if not bool((err <= ATTN_RTOL * want.abs() + ATTN_ATOL).all()):
+            raise AssertionError(f"flash_attention != plain at {name}: max "
+                                 f"|err| {float(err.max())}")
+        print(f"flash_attention at {name} (B {b}, H {h}/{kh}, Sq {sq}, Skv "
+              f"{skv}, D {d}): max |err| {float(err.max())}", flush=True)
+    print(f"flash_attention within {ATTN_RTOL} * |plain| + {ATTN_ATOL} of its "
+          f"plain version at {len(FLASH_SHAPES)} shapes: max |err| {worst}",
+          flush=True)
+    return worst
+
+
+def _live_pairs(b, sq, skv, causal, window, kvl):
+    """(query, key) pairs the masks leave live, summed over the batch."""
+    kvl = [skv] * b if kvl is None else (
+        kvl if isinstance(kvl, list) else [kvl] * b)
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(skv)[None, :]
+    total = 0
+    for n in kvl:
+        live = (kpos < min(n, skv)).expand(sq, skv)
+        if causal:
+            live = live & (qpos >= kpos)
+            if window > 0:
+                live = live & (qpos - kpos < window)
+        total += int(live.sum())
+    return total
+
+
+def _sdpa(q, k, v, *, kv_valid_len, causal, window, softcap):
+    """A call of ``torch.nn.functional.scaled_dot_product_attention`` that
+    computes the same attention, or None with a softcap (SDPA has none): the
+    causal flag alone where no key is masked otherwise, else a boolean mask
+    built here, before timing."""
+    if softcap:
+        return None
+    sq, skv = q.shape[2], k.shape[2]
+    F = torch.nn.functional
+    if kv_valid_len is None and window == 0 and causal and sq == skv:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    n = skv if kv_valid_len is None else kv_valid_len
+    n = torch.as_tensor(n, device=q.device).reshape(-1, 1, 1, 1)
+    mask = kpos[None, None] < n
+    if causal:
+        mask = mask & (qpos >= kpos)[None, None]
+        if window > 0:
+            mask = mask & (qpos - kpos < window)[None, None]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def time_flash(device):
+    """Flash-attention kernel, plain version and SDPA (where one call
+    computes the same attention) at FLASH_SHAPES, with the bound: live
+    (query, key) pairs x 4 D flops x heads at the f32 peak (the kernel's
+    products are f32 FMAs), or q, k, v and the output read or written once
+    at the memory rate, whichever is larger. Returns per-shape rows and the
+    totals of gemma3-12b's 2048-token prefill (40 local + 8 global layers)."""
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=device)
+    rows = {}
+    for i, (name, b, h, kh, sq, skv, d, causal, window, softcap,
+            kvl) in enumerate(FLASH_SHAPES):
+        q, k, v, kvl_t = _flash_inputs(i, b, h, kh, sq, skv, d, kvl, device)
+        kw = dict(kv_valid_len=kvl_t, causal=causal, window=window,
+                  softcap=softcap)
+        kern = lambda: flash_attention.flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: flash_attention_ref(q, k, v, **kw)  # noqa: E731
+        lib = _sdpa(q, k, v, **kw)
+        flops = 4 * d * h * _live_pairs(b, sq, skv, causal, window, kvl)
+        io = 2 * (2 * b * h * sq * d + 2 * b * kh * skv * d)
+        row = dict(ms=_time_ms(kern, flush), plain_ms=_time_ms(plain, flush),
+                   library_ms=None, ops_s=flops / F32_FLOPS_PER_S,
+                   bytes_s=io / HBM_BYTES_PER_S)
+        row["bound_ms"] = max(row["ops_s"], row["bytes_s"]) * 1e3
+        lib_err = None
+        if lib is not None:
+            row["library_ms"] = _time_ms(lib, flush)
+            lib_err = float((lib().float() - kern().float()).abs().max())
+        rows[name] = row
+        sdpa = ("n/a (softcap)" if lib is None
+                else f"{row['library_ms']:.4f} ms")
+        print(f"flash_attention {name}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, SDPA {sdpa}"
+              f" (max |SDPA - kernel| {lib_err}), bound "
+              f"{row['bound_ms']:.4f} ms ({'bytes' if row['bytes_s'] >= row['ops_s'] else 'f32 operations'}; "
+              f"{flops / 1e9:.2f} GFLOP live), "
+              f"{flops / row['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+    del flush
+    cfg = ARCHS[GEMMA3]
+    n_global = sum(1 for w in layer_windows(cfg) if w == 0)
+    per = {"gemma3-12b local": cfg.n_layers - n_global,
+           "gemma3-12b global": n_global}
+    tot = {key: sum(n * rows[name][key] for name, n in per.items())
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_s",
+                       "bytes_s")}
+    print(f"flash_attention per gemma3-12b {GEMMA3_WINDOW_PROMPT}-token "
+          f"prefill ({per}): kernel {tot['ms']:.4f} ms, plain "
+          f"{tot['plain_ms']:.4f} ms, SDPA {tot['library_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms", flush=True)
+    return tot
+
+
+def _logit_tol(top):
+    """LOGIT_ULPS bf16 ulps at magnitude ``top`` (the largest |logit|):
+    LOGIT_ATOL's bound carried to logits of any size; LOGIT_ATOL itself
+    below 8."""
+    return max(LOGIT_ATOL, LOGIT_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7))
+
+
+def serve_gemma3(device):
+    """gemma3-12b at full width, bound under ``mxu_int8``: lockstep through
+    ``serve.main`` (CLI defaults: batch 4, prompt 16, gen 16) with the flash
+    kernel at every prefill layer; the engine on the 16-request trace with
+    ``paged_attention`` at head dim 256; every engine stream against the
+    lockstep stream of its prompt; then the 2048-token prefill over a
+    ``windowed=False`` cache (past the 1024-token window) against the same
+    prefill with the route's flash entry replaced by its plain version.
+    Returns (launches of the counted runs, flash ms of the window prefill)."""
+    cfg = ARCHS[GEMMA3]
+    argv = ["--arch", GEMMA3, "--backend", "mxu_int8"]
+    t0 = time.perf_counter()
+    out, launches = _counted(lambda: serve.main(argv))
+    _check_launches(f"{GEMMA3} lockstep", launches,
+                    {"systolic_gemm": GEN * (7 * cfg.n_layers + 1),
+                     "flash_attention": cfg.n_layers})
+    if out.shape != (BATCH, GEN) or not ((out >= 0)
+                                         & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"{GEMMA3}: bad lockstep stream {out}")
+    print(f"{GEMMA3} lockstep (serve.main, set-up included) "
+          f"{time.perf_counter() - t0:.1f}s; launches {launches}", flush=True)
+    args = serve.build_parser().parse_args(argv + ENGINE_ARGS)
+    cfg, model, params, policy, _ = serve.setup(args)
+    reqs = engine_trace(cfg.vocab_size)
+    (finished, eng), e_launches = _counted(lambda: serve.run_engine(
+        args, cfg, params, policy, requests=_fresh(reqs)))
+    steps = eng.stats["host_syncs"]
+    _check_launches(f"{GEMMA3} engine", e_launches,
+                    {"paged_attention": cfg.n_layers * steps,
+                     "systolic_gemm": (7 * cfg.n_layers + 1) * steps})
+    if eng.stats["finished"] != N_REQUESTS:
+        raise AssertionError(f"{GEMMA3} engine: {eng.stats}")
+    ties = _streams_vs_lockstep(f"{GEMMA3} engine", cfg, model, params,
+                                policy, reqs, finished)
+    print(f"{GEMMA3} engine: {N_REQUESTS} streams equal to lockstep ({ties} "
+          f"flagged ties); launches {e_launches} over {steps} chunk steps",
+          flush=True)
+    for name, n in e_launches.items():
+        launches[name] += n
+    idle, recorded = engine_idle_share(args, cfg, params, policy, reqs)
+    print(f"{GEMMA3} engine: device idle share {idle['idle_share']:.3f} over "
+          f"chunk steps {TRACE_WINDOW} (busy {idle['busy_ms']:.3f} ms/step, "
+          f"wall {idle['wall_ms']:.3f} ms/step, {idle['events']:.0f} device "
+          f"events/step)", flush=True)
+    time_paged(cfg, device, recorded)      # paged_attention at head dim 256
+    del recorded
+    # the window on the path: a 2048-token prompt over the uniform cache
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, GEMMA3_WINDOW_PROMPT))).to(device)
+    def plain_reordered(*a, **kw):      # the plain version, 256-key chunks
+        return flash_attention_ref(*a, **{**kw, "bk": WINDOW_REORDER_BK})
+
+    logits = {}
+    for name, entry in (("kernel", flash_attention.flash_attention),
+                        ("plain", flash_attention_ref),
+                        ("reordered plain", plain_reordered)):
+        real, layers.flash_attention = layers.flash_attention, entry
+        try:
+            cache = model.init_cache(1, GEMMA3_WINDOW_PROMPT, device=device,
+                                     windowed=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (out, _), n_launch = _counted(lambda: model.prefill(
+                params, {"tokens": tokens}, cache, policy=policy))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        finally:
+            layers.flash_attention = real
+        logits[name] = out[0, -1]
+        del cache
+        print(f"{GEMMA3} {GEMMA3_WINDOW_PROMPT}-token prefill, attention by "
+              f"the {name} version: {wall:.1f} ms wall; launches {n_launch}",
+              flush=True)
+        if name == "kernel":
+            _check_launches(f"{GEMMA3} window prefill", n_launch,
+                            {"systolic_gemm": 7 * cfg.n_layers + 1,
+                             "flash_attention": cfg.n_layers})
+            for k, n in n_launch.items():
+                launches[k] += n
+    a, b = logits["kernel"], logits["plain"]
+    diff = float((a - b).abs().max())
+    spread = float((logits["reordered plain"] - b).abs().max())
+    top = float(b.abs().max())
+    tol = max(_logit_tol(top), 2 * spread)
+    top2 = torch.topk(b, 2).values
+    margin = float(top2[0] - top2[1])
+    tie = int(a.argmax()) != int(b.argmax())
+    what = (f"max |logit| {top}, {LOGIT_ULPS} bf16 ulps there "
+            f"{_logit_tol(top)}; the plain version's own drift under "
+            f"{WINDOW_REORDER_BK}-key chunks {spread}")
+    if not (torch.isfinite(a).all() and diff <= tol) or (tie and margin > tol):
+        raise AssertionError(f"{GEMMA3} window prefill: kernel logits off the "
+                             f"plain attention's by {diff} > {tol} ({what}; "
+                             f"argmax {int(a.argmax())} vs {int(b.argmax())},"
+                             f" plain top-2 margin {margin})")
+    print(f"{GEMMA3} window prefill: last-position logits kernel vs plain "
+          f"attention max |diff| {diff} <= {tol} ({what}); argmax "
+          f"{'a flagged tie' if tie else 'equal'} (plain top-2 margin "
+          f"{margin})", flush=True)
+    del params, eng, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -875,6 +1196,8 @@ def main() -> int:
     err["paged_attention"] = check_paged(device)
     phase("delta kernel checks")
     err["delta_gemm"] = check_delta(cfg, device)
+    phase("flash kernel checks")
+    err["flash_attention"] = check_flash(device)
     launches = {name: 0 for name in KERNELS}
     streams = {}
     phase("lockstep serving")
@@ -903,6 +1226,12 @@ def main() -> int:
     tot = time_kernels(cfg, device, sm_clock_hz)
     phase("paged-attention timings")
     tot["paged_attention"] = time_paged(cfg, device, recorded)
+    del recorded
+    phase("flash-attention timings")
+    tot["flash_attention"] = time_flash(device)
+    phase(f"{GEMMA3} lockstep, engine and window prefill")
+    for name, n in serve_gemma3(device).items():
+        launches[name] += n
 
     entries = []
     for name, k in KERNELS.items():

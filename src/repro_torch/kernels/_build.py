@@ -26,7 +26,8 @@ from typing import Dict, Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("systolic_gemm", "approx_gemm", "delta_gemm", "paged_attention")
+KERNELS = ("systolic_gemm", "approx_gemm", "delta_gemm", "paged_attention",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -29,8 +29,8 @@
 // Design (simple and right first; wgmma/TMA come later):
 //  * One block of 128 threads per (query tile, KV head, batch row x split).
 //    GQA: the block holds the G = H/KH query heads of its KV head for up to
-//    `qt` query positions (R = G*qt rows, at most 64), so each KV byte read
-//    serves G*qt rows.
+//    `qt` query positions (R = G*qt rows, at most 64; 32 at D = 256), so
+//    each KV byte read serves G*qt rows. Head dims 16, 32, 64, 128, 256.
 //  * KV is staged 64 positions at a time: every thread issues 16-byte
 //    cp.async copies of pool rows straight from the block the table names
 //    into shared memory (rows padded so 16-byte row reads are free of bank
@@ -38,8 +38,9 @@
 //    loaded at all.
 //  * The chunk's scores stay in shared memory (R x chunk floats), so the
 //    softmax update sees the whole chunk as the reference does. Scores:
-//    one thread per KV position, its K row in registers, FMAs over D. P.V:
-//    one thread per (row group, d), the V column read from shared memory.
+//    one thread per KV position, its K row in registers (128 values at a
+//    time), FMAs over D. P.V: one thread per (row group, d), two columns d
+//    at D = 256, the V column read from shared memory.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
@@ -147,6 +148,20 @@ __device__ __forceinline__ void load_tile(KVT* dst, const KVT* pool,
   __syncthreads();
 }
 
+// Work split of the score and P.V passes by head dim. Scores: one thread per
+// KV position holds DP of its K row in registers at a time (two pieces at
+// D = 256). P.V: thread (row group, column) with DT columns per row group;
+// at D = 256 each thread owns two columns and a block at most 32 rows, so
+// its partial sums stay at 64 registers.
+template <int D> struct Split {
+  static constexpr int DP = D < 128 ? D : 128;
+  static constexpr int DT = D < THREADS ? D : THREADS;
+  static constexpr int NG2 = THREADS / DT;    // row groups of the P.V pass
+  static constexpr int DPT = D / DT;          // columns per thread
+  static constexpr int RM = D > THREADS ? RMAX / 2 : RMAX;   // rows per block
+  static constexpr int RPT = RM / NG2;        // rows per thread of the P.V pass
+};
+
 template <typename KVT>
 __device__ __forceinline__ float load_kv(KVT x, float int8_scale) {
   if constexpr (std::is_same<KVT, int8_t>::value) return to_f32(x) / int8_scale;
@@ -158,8 +173,8 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(const Args a) 
   constexpr int STRIDE = D + Pad<KVT>::v;
   constexpr int VEC = 16 / sizeof(KVT);
   constexpr int NG1 = THREADS / KT;   // row groups of the score pass
-  constexpr int NG2 = THREADS / D;    // row groups of the P.V pass
-  constexpr int RPT = RMAX / NG2;     // rows per thread of the P.V pass
+  constexpr int DP = Split<D>::DP, DT = Split<D>::DT, NG2 = Split<D>::NG2;
+  constexpr int DPT = Split<D>::DPT, RPT = Split<D>::RPT;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int G = a.H / a.KH;
@@ -226,27 +241,34 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(const Args a) 
       load_tile<KVT, D>(Ks, kpool, table, a, kh, pos0, n);
       const int c = tid % KT;
       if (c < n) {
-        float kr[D];
-#pragma unroll
-        for (int v = 0; v < D / VEC; ++v) {
-          const uint4 w = reinterpret_cast<const uint4*>(Ks + c * STRIDE)[v];
-          const KVT* e = reinterpret_cast<const KVT*>(&w);
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) kr[v * VEC + i] = load_kv(e[i], a.int8_scale);
-        }
         const int kpos = pos0 + c;
-        for (int r = tid / KT; r < R; r += NG1) {
-          const float* qr = Qs + r * D;
-          float s = 0.f;
 #pragma unroll
-          for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-          if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
-          bool ok = kpos < kvl;
-          if (a.causal) {
-            const int delta = Qp[r / G] - kpos;
-            ok = ok && delta >= 0 && delta < win;
+        for (int p0 = 0; p0 < D; p0 += DP) {   // one FMA chain over D, DP at a time
+          float kr[DP];
+#pragma unroll
+          for (int v = 0; v < DP / VEC; ++v) {
+            const uint4 w = reinterpret_cast<const uint4*>(Ks + c * STRIDE + p0)[v];
+            const KVT* e = reinterpret_cast<const KVT*>(&w);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) kr[v * VEC + i] = load_kv(e[i], a.int8_scale);
           }
-          S[r * C + c0 + c] = ok ? s : BIG_NEG;
+          for (int r = tid / KT; r < R; r += NG1) {
+            const float* qr = Qs + r * D + p0;
+            float s = p0 == 0 ? 0.f : S[r * C + c0 + c];
+#pragma unroll
+            for (int d = 0; d < DP; ++d) s = fmaf(qr[d], kr[d], s);
+            if (p0 + DP < D) {          // a partial sum: this thread's own entry
+              S[r * C + c0 + c] = s;
+              continue;
+            }
+            if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
+            bool ok = kpos < kvl;
+            if (a.causal) {
+              const int delta = Qp[r / G] - kpos;
+              ok = ok && delta >= 0 && delta < win;
+            }
+            S[r * C + c0 + c] = ok ? s : BIG_NEG;
+          }
         }
       }
       __syncthreads();   // the next tile overwrites Ks
@@ -274,10 +296,12 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(const Args a) 
     }
     __syncthreads();
     // 3. acc = acc * corr + P.V (masked tiles hold p = 0 for every live row)
-    const int d = tid % D, rg = tid / D;
-    float pv[RPT];
+    const int dt = tid % DT, rg = tid / DT;
+    float pv[DPT][RPT];
 #pragma unroll
-    for (int j = 0; j < RPT; ++j) pv[j] = 0.f;
+    for (int e = 0; e < DPT; ++e)
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) pv[e][j] = 0.f;
     for (int c0 = 0; c0 < C; c0 += KT) {
       const int n = min(KT, C - c0);
       const int pos0 = base + c0;
@@ -288,9 +312,13 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(const Args a) 
         const int r = rg + j * NG2;
         if (r < R) {
           const float* pr = S + (size_t)r * C + c0;
-          float s = pv[j];
-          for (int c = 0; c < n; ++c) s = fmaf(pr[c], load_kv(Vs[c * STRIDE + d], a.int8_scale), s);
-          pv[j] = s;
+#pragma unroll
+          for (int e = 0; e < DPT; ++e) {
+            float s = pv[e][j];
+            for (int c = 0; c < n; ++c)
+              s = fmaf(pr[c], load_kv(Vs[c * STRIDE + dt + e * DT], a.int8_scale), s);
+            pv[e][j] = s;
+          }
         }
       }
       __syncthreads();   // the next tile overwrites Vs
@@ -298,7 +326,13 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(const Args a) 
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
       const int r = rg + j * NG2;
-      if (r < R) Acc[r * D + d] = Acc[r * D + d] * Cr[r] + pv[j];
+      if (r < R) {
+#pragma unroll
+        for (int e = 0; e < DPT; ++e) {
+          const int d = dt + e * DT;
+          Acc[r * D + d] = Acc[r * D + d] * Cr[r] + pv[e][j];
+        }
+      }
     }
     __syncthreads();     // the next chunk rewrites S and Cr
   }
@@ -328,7 +362,7 @@ template <typename QT, typename KVT, int D>
 cudaError_t launch(Args a, cudaStream_t stream) {
   const int G = a.H / a.KH;
   // query positions per block: as many as the row cap and shared memory allow
-  int qt = min(a.Sq, RMAX / G);
+  int qt = min(a.Sq, Split<D>::RM / G);
   while (qt > 1 && smem_bytes<KVT, D>(G, qt, a.chunk) > (size_t)SMEM_LIMIT) --qt;
   if (qt < 1 || smem_bytes<KVT, D>(G, qt, a.chunk) > (size_t)SMEM_LIMIT)
     return cudaErrorInvalidValue;
@@ -360,6 +394,7 @@ cudaError_t dispatch_d(const Args& a, int D, cudaStream_t s) {
     case 32: return launch<QT, KVT, 32>(a, s);
     case 64: return launch<QT, KVT, 64>(a, s);
     case 128: return launch<QT, KVT, 128>(a, s);
+    case 256: return launch<QT, KVT, 256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

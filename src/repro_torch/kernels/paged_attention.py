@@ -28,7 +28,7 @@ from . import _build
 from .ref import paged_attention_ref
 
 NAME = "paged_attention"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 launches = 0

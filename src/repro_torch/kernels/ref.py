@@ -12,6 +12,9 @@ card. They run on any device.
   gather path of ``models.layers.chunked_attention``.
 * ``delta_matmul_fused_ref`` — the exact int8 base plus the rank-r f32
   correction of the error-delta decomposition, rounded per K-block.
+* ``flash_attention_ref`` — causal/window/softcap attention of a whole
+  sequence from position 0, on the (B, H, S, D) layout: the contiguous
+  online softmax of ``models.layers.chunked_attention``.
 """
 from __future__ import annotations
 
@@ -98,3 +101,40 @@ def delta_matmul_fused_ref(a_s: torch.Tensor, b_s: torch.Tensor,
             corr += torch.matmul(f_t[au, j], g_t[j][bu])
         out += torch.round(corr).to(torch.int32)
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        kv_valid_len=None, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        bq: int = 1024, bk: int = 1024) -> torch.Tensor:
+    """What ``flash_attention.flash_attention`` computes: q (B, H, Sq, D)
+    against k/v (B, KH, Skv, D), ``H % KH == 0`` (query head h reads KV head
+    ``h // (H // KH)``), query and key positions their row indices from 0.
+
+    Scores are f32 products of q scaled by ``D ** -0.5`` and k; then the
+    softcap ``cap * tanh(s / cap)``; keys at or past ``kv_valid_len`` (None:
+    every key; an int; or a (B,) tensor) are masked, and when ``causal`` so
+    are keys past the query (``qpos - kpos < 0``) or ``window`` or more
+    behind it (``window > 0``), all to ``layers.BIG_NEG``. An online softmax
+    over ``bk``-key chunks, ``bq`` queries at a time, keeps the running max,
+    sum and output in f32; the output is ``acc / max(l, 1e-30)`` in q's
+    dtype, (B, H, Sq, D). Rows that admit no key (``kv_valid_len == 0``)
+    and ``kv_valid_len > Skv`` are out of contract.
+
+    This is ``layers.chunked_attention`` on transposed views, with
+    ``q_chunk = bq`` and ``chunk = bk``, so it scales q in q's dtype before
+    the f32 cast, as that function, the JAX package's ``chunked_attention``
+    and the paged-attention kernel do. The JAX Pallas kernel
+    (``repro/kernels/flash_attention.py``) casts first and then scales: the
+    two orders agree bit for bit in f32 and at D = 16, 64 and 256 (a power
+    of two scale), and differ by one bf16 rounding of q at D = 80 and 128 in
+    bf16, which the kernel tolerance (one bf16 ulp of the output) covers.
+    """
+    from repro_torch.models.layers import chunked_attention
+    kvl = k.shape[2] if kv_valid_len is None else kv_valid_len
+    qpos = torch.arange(q.shape[2], device=q.device)
+    out = chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), qpos, kvl, causal=causal,
+                            window=window, softcap=softcap, chunk=bk,
+                            q_chunk=bq)
+    return out.transpose(1, 2)

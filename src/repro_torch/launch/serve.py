@@ -24,8 +24,15 @@ CPU, unless ``--device cpu`` is given. Parameters are random, drawn from a
 ``torch.Generator`` seeded with 0; prompts come from ``--seed`` through
 numpy, as in the reference.
 
+``--arch`` takes any dense config of the registry (smollm-360m,
+gemma3-12b, gemma2-27b, qwen2.5-14b) at its full published width; a cache
+longer than a windowed config's window needs the two-tier ring cache, which
+is not ported yet (``init_cache`` raises).
+
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
           --backend approx_lut [--engine --requests 16]
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+          --backend mxu_int8 [--engine --requests 16]
 """
 from __future__ import annotations
 

@@ -7,7 +7,10 @@ weights run weight-stationary. Attention scores and probabilities are f32
 (``torch.backends.cuda.matmul.allow_tf32`` must stay False, its default, for
 the f32 einsums to be f32 on the card). Caches are contiguous (lockstep) or
 paged block pools read through per-slot block tables (the engine); the ring
-caches of windowed families come with a later slice.
+caches of windowed families come with a later slice. Attention over a whole
+prompt from position 0 goes through the flash-attention kernel
+(``kernels.flash_attention``), whose plain version on CPU tensors is
+``chunked_attention`` itself.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.gemm import EXACT, GemmPolicy, dot
+from repro_torch.kernels.flash_attention import flash_attention
 
 BIG_NEG = -2.3819763e38  # min bf16
 
@@ -244,6 +248,14 @@ def attention_block(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     the table: the gather path, or the paged-attention kernel when
     ``paged_kernel`` is truthy. ``kv_valid_len`` is the per-slot (B,) count
     of valid cache entries.
+
+    Contiguous attention over a whole prompt from position 0 (no cache, or
+    ``cache_pos == 0``; ``q_positions`` are then ``0 .. Sq - 1``, as
+    ``transformer.forward`` gives them) goes through ``flash_attention``:
+    the kernel on the card, and on the CPU its plain version, which is the
+    ``chunked_attention`` call of the other positions with this ``chunk``.
+    Decode and later chunks (``cache_pos > 0``) take ``chunked_attention``:
+    the kernel, like the reference's, has no query offset.
     """
     b, sq, _ = x.shape
     q = dot(x, p["wq"], policy, layer=layer + "/wq")
@@ -281,9 +293,16 @@ def attention_block(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
             k_all, v_all, valid = ck, cv, cache_pos + sq
         else:
             k_all, v_all, valid = k, v, sq
-        out = chunked_attention(q, k_all, v_all, q_positions, valid,
-                                causal=causal, window=window, softcap=softcap,
-                                chunk=chunk)
+        if kv_cache is None or cache_pos == 0:
+            # (B, H, S, D) views: no copies; q_chunk 1024 as chunked_attention's
+            out = flash_attention(
+                q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2),
+                kv_valid_len=valid, causal=causal, window=window,
+                softcap=softcap, bq=1024, bk=chunk).transpose(1, 2)
+        else:
+            out = chunked_attention(q, k_all, v_all, q_positions, valid,
+                                    causal=causal, window=window,
+                                    softcap=softcap, chunk=chunk)
     out = out.reshape(b, sq, n_heads * head_dim)
     return dot(out, p["wo"], policy, layer=layer + "/wo"), kv_cache
 

@@ -3,9 +3,10 @@
 The reference stacks the layers and runs one traced layer under ``lax.scan``;
 PyTorch runs eagerly, so here the parameters hold a list of per-layer dicts and
 ``forward`` loops over it. ``prefill``/``decode_step`` serve lockstep over a
-contiguous cache; ``chunk_step`` serves the engine over a paged cache. The
-MoE, audio and VLM variants and the two-tier windowed cache come with later
-slices.
+contiguous cache; ``chunk_step`` serves the engine over a paged cache. Both
+caches are uniform (``init_cache(..., windowed=False)`` past a window: the
+windowed layers mask it). The MoE, audio and VLM variants and the two-tier
+windowed (ring) cache come with later slices.
 """
 from __future__ import annotations
 
@@ -140,20 +141,31 @@ def logits_from_hidden(params, cfg: ModelConfig, hidden,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu", paged=None):
+               dtype=torch.bfloat16, device="cpu", *, windowed=None,
+               paged=None):
     """Uniform (L, B, S, KH, hd) contiguous cache of a float dtype, or with
     ``paged=(n_blocks, block_size)`` shared block pools
     ``(L, n_blocks + 1, block_size, KH, hd)`` (the ``+ 1`` is the dump block
     masked writes go to) plus the per-slot ``block_tables`` leaf
     ``(batch, ceil(max_len / block_size))`` set to the dump index; the
     engine's allocator (``launch.paged.BlockPool``) owns the table contents.
-    A paged cache may hold int8 payloads (``layers.CACHE_INT8_SCALE``)."""
+    A paged cache may hold int8 payloads (``layers.CACHE_INT8_SCALE``).
+
+    ``windowed`` as in the reference: ``None`` picks the two-tier ring cache
+    for a local:global window pattern whose ``max_len`` passes the window,
+    ``False`` keeps the uniform cache at any ``max_len`` (windowed layers
+    then mask their window in attention). The ring cache is not ported yet:
+    choosing it (``True``, or ``None`` past the window) raises."""
     _check_ported(cfg)
-    if (cfg.window_size and cfg.global_every and max_len > cfg.window_size
-            and cfg.n_layers % cfg.global_every == 0):
+    if windowed is None:
+        windowed = bool(cfg.window_size and cfg.global_every
+                        and max_len > cfg.window_size
+                        and cfg.n_layers % cfg.global_every == 0)
+    if windowed:
         raise NotImplementedError(
             f"{cfg.name}: the two-tier windowed (ring) cache is not ported "
-            "yet, see ROADMAP.md")
+            "yet (init_cache(..., windowed=False) keeps the uniform cache), "
+            "see ROADMAP.md")
     kh, hd = cfg.n_kv_heads, cfg.hd
     if paged is not None:
         n_blocks, blk = paged

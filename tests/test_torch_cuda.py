@@ -14,17 +14,22 @@ a truncated rank without the residual within one per K-block). The paged-attenti
 order than its plain version (the gather path on cuBLAS f32 einsums, TF32
 off), so it is held to a tolerance: with f32 q and pools within
 ``F32_ATOL``; with bf16 outputs within one bf16 ulp (``BF16_RTOL`` = 2^-7 of
-the value) plus ``BF16_ATOL`` for sums that cancel near zero.
+the value) plus ``BF16_ATOL`` for sums that cancel near zero. The
+flash-attention kernel likewise (its plain version is the chunked attention
+on cuBLAS f32 einsums): bf16 outputs within one bf16 ulp plus ``BF16_ATOL``,
+f32 outputs within ``F32_ATOL`` plus ``F32_ATOL`` of the value (sums over up
+to a few hundred keys in another order, and ``expf`` against PyTorch's exp).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import error_delta
-from repro_torch.kernels import (approx_gemm, delta_gemm, ops,
-                                 paged_attention, systolic_gemm)
+from repro_torch.kernels import (approx_gemm, delta_gemm, flash_attention,
+                                 ops, paged_attention, systolic_gemm)
 from repro_torch.kernels.ref import (approx_matmul_ref, delta_matmul_fused_ref,
-                                     paged_attention_ref, systolic_matmul_ref)
+                                     flash_attention_ref, paged_attention_ref,
+                                     systolic_matmul_ref)
 
 pytestmark = pytest.mark.cuda
 F32_ATOL = 1e-5
@@ -234,7 +239,11 @@ PAGED = [(1, 15, 5, 64, 8, 8, [0, 13, 40, 64], 1024, 0, 0.0),
          (1, 15, 5, 64, 8, 32, [9, 70, 0, 256], 64, 24, 30.0),
          (5, 4, 2, 16, 4, 6, [5, 24, 0, 11], 8, 0, 0.0),
          (3, 8, 1, 128, 16, 4, [64, 3, 0, 40], 32, 7, 0.0),
-         (2, 4, 4, 32, 8, 5, [2, 33, 40, 0], 16, 0, 5.0)]
+         (2, 4, 4, 32, 8, 5, [2, 33, 40, 0], 16, 0, 5.0),
+         # gemma3-12b's engine: 16/8 heads at head dim 256
+         (1, 16, 8, 256, 8, 8, [0, 13, 40, 64], 1024, 0, 0.0),
+         (8, 16, 8, 256, 8, 8, [8, 0, 41, 64], 1024, 0, 0.0),
+         (8, 16, 8, 256, 8, 32, [9, 150, 0, 256], 64, 24, 0.0)]
 
 
 @pytest.mark.parametrize("case", PAGED)
@@ -316,3 +325,108 @@ def test_reduced_engine_on_card(device, backend):
         diff = np.nonzero(got != want)[0]
         if diff.size:
             assert float(margins[int(diff[0])][0]) <= 0.125, r.rid
+
+
+# (B, H, KH, Sq, Skv, causal, window, softcap, kv_valid_len, layout)
+# kv_valid_len: None, an int, or a list (per batch row); layout "bshd" hands
+# the kernel transposed views of (B, S, H, D) tensors, as the model's route
+FLASH = [(2, 4, 4, 64, 64, True, 0, 0.0, None, "bhsd"),
+         (2, 15, 5, 16, 16, True, 0, 0.0, None, "bshd"),        # smollm
+         (1, 16, 8, 200, 200, True, 48, 0.0, None, "bshd"),     # window
+         (2, 8, 4, 130, 130, True, 32, 50.0, None, "bhsd"),     # softcap
+         (3, 6, 2, 40, 96, False, 0, 0.0, [5, 70, 96], "bhsd"),  # ragged
+         (2, 4, 1, 77, 77, True, 0, 0.0, 50, "bshd"),
+         (2, 4, 2, 33, 70, False, 0, 0.0, None, "bhsd")]
+
+
+def flash_inputs(seed, *, b, h, kh, sq, skv, d, dtype, layout, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g)
+    k = torch.randn((b, skv, kh, d), generator=g)
+    v = torch.randn((b, skv, kh, d), generator=g)
+    q, k, v = (t.to(dtype).to(device) for t in (q, k, v))
+    if layout == "bshd":
+        return [t.transpose(1, 2) for t in (q, k, v)]
+    return [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
+def test_flash_attention_matches_plain(device, d):
+    """Every FLASH case in f32 and bf16 at head dim d, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, case in enumerate(FLASH):
+        b, h, kh, sq, skv, causal, window, softcap, kvl, layout = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(i + d, b=b, h=h, kh=kh, sq=sq, skv=skv,
+                                   d=d, dtype=dtype, layout=layout,
+                                   device=device)
+            if isinstance(kvl, list):
+                kvl = torch.tensor(kvl, dtype=torch.int32, device=device)
+            kw = dict(kv_valid_len=kvl, causal=causal, window=window,
+                      softcap=softcap)
+            before = flash_attention.launches
+            got = flash_attention.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert flash_attention.launches == before + 1
+            assert got.shape == q.shape and got.dtype == dtype
+            want = flash_attention_ref(q, k, v, **kw).float()
+            err = (got.float() - want).abs()
+            if dtype == torch.float32:
+                bound = F32_ATOL * want.abs() + F32_ATOL
+            else:
+                bound = BF16_RTOL * want.abs() + BF16_ATOL
+            assert (err <= bound).all(), (case, dtype, err.max().item())
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(device):
+    q, k, v = flash_inputs(0, b=1, h=4, kh=2, sq=8, skv=8, d=32,
+                           dtype=torch.float32, layout="bhsd", device=device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, k, v)
+    q, k, v = flash_inputs(0, b=1, h=4, kh=2, sq=8, skv=8, d=16,
+                           dtype=torch.float32, layout="bhsd", device=device)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q.half(), k, v)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+
+
+def test_reduced_prefill_through_flash_on_card(device):
+    """The lockstep server's prefill launches the flash kernel once per
+    layer and nothing else of the attention kernels; decode launches none.
+    Reduced gemma3 with a uniform cache past its window: the card's prefill
+    logits are within 4 bf16 ulps of the same prefill with the route's
+    entry replaced by the plain version."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    before = (flash_attention.launches, paged_attention.launches)
+    serve.main(["--debug", "--gen-len", "4"])
+    assert (flash_attention.launches - before[0],
+            paged_attention.launches - before[1]) == (2, 0)
+    cfg = reduced(ARCHS["gemma3-12b"])
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0),
+                               device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(device)
+    logits = {}
+    for name, fn in (("kernel", flash_attention.flash_attention),
+                     ("plain", flash_attention_ref)):
+        real, L.flash_attention = L.flash_attention, fn
+        try:
+            before = flash_attention.launches
+            logits[name], _ = model.prefill(
+                params, {"tokens": tokens},
+                model.init_cache(2, 40, device=device, windowed=False))
+            torch.cuda.synchronize()
+            launched = flash_attention.launches - before
+        finally:
+            L.flash_attention = real
+        assert launched == (cfg.n_layers if name == "kernel" else 0)
+    d = (logits["kernel"] - logits["plain"]).abs().max().item()
+    assert d <= 0.125, d
