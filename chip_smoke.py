@@ -78,8 +78,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    attention (32/16 heads, head dim 128, softcap 50, window 4096) at 4608
    tokens, ragged per-batch live lengths causal and not. Then timed there
    with its plain version and ``scaled_dot_product_attention`` (same
-   inputs and mask; none with a softcap), beside the bound (live-pair f32
-   flops at the f32 peak, or the bytes read and written once).
+   inputs and mask; none with a softcap), beside the bound (per live pair
+   the bf16 q k^T flops at the bf16 tensor-core peak and the f32 p v flops
+   at the f32 peak, the longer of the two, or the bytes read and written
+   once).
 12. gemma3-12b at its full published width (48 layers, d_model 3840, 16/8
    heads, head dim 256, d_ff 15360, vocab 262144, bf16, random weights from
    seed 0), bound under ``mxu_int8``: lockstep through ``serve.main``
@@ -97,7 +99,12 @@ Phases (any failure exits non-zero before the result lines are printed):
    sums (``WINDOW_REORDER_BK``), whichever is larger, of the same
    prefill with the route's entry
    (``models.layers.flash_attention``) replaced by the plain version, argmax
-   equal or a flagged tie.
+   equal or a flagged tie. Two controls show that the gate sees the window
+   mask: the same prefill with the plain version stripped of the window
+   must move the logits past that tolerance; and the first local layer's
+   kernel output at the queries past the window is held to the plain
+   version on the same inputs within ``ATTN_RTOL`` plus ``ATTN_ATOL``,
+   which the unwindowed plain version must break.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``launches`` in it counts
@@ -1011,11 +1018,15 @@ def _sdpa(q, k, v, *, kv_valid_len, causal, window, softcap):
 
 def time_flash(device):
     """Flash-attention kernel, plain version and SDPA (where one call
-    computes the same attention) at FLASH_SHAPES, with the bound: live
-    (query, key) pairs x 4 D flops x heads at the f32 peak (the kernel's
-    products are f32 FMAs), or q, k, v and the output read or written once
-    at the memory rate, whichever is larger. Returns per-shape rows and the
-    totals of gemma3-12b's 2048-token prefill (40 local + 8 global layers)."""
+    computes the same attention) at FLASH_SHAPES, with the bound: the
+    operations or q, k, v and the output read or written once at the memory
+    rate, whichever take longer. Each live (query, key) pair and head costs
+    2 D flops of q k^T, whose operands are bf16 (products of two bf16 values
+    are exact in f32, so they may run on the bf16 tensor cores), and 2 D of
+    p v, whose p is f32 (the f32 peak outside the tensor cores); the two
+    halves run on separate units, so the operations take the longer of the
+    two. Returns per-shape rows and the totals of gemma3-12b's 2048-token
+    prefill (40 local + 8 global layers)."""
     flush = torch.empty(256 << 20, dtype=torch.int8, device=device)
     rows = {}
     for i, (name, b, h, kh, sq, skv, d, causal, window, softcap,
@@ -1026,10 +1037,12 @@ def time_flash(device):
         kern = lambda: flash_attention.flash_attention(q, k, v, **kw)  # noqa: E731
         plain = lambda: flash_attention_ref(q, k, v, **kw)  # noqa: E731
         lib = _sdpa(q, k, v, **kw)
-        flops = 4 * d * h * _live_pairs(b, sq, skv, causal, window, kvl)
+        half = 2 * d * h * _live_pairs(b, sq, skv, causal, window, kvl)
+        flops = 2 * half
         io = 2 * (2 * b * h * sq * d + 2 * b * kh * skv * d)
         row = dict(ms=_time_ms(kern, flush), plain_ms=_time_ms(plain, flush),
-                   library_ms=None, ops_s=flops / F32_FLOPS_PER_S,
+                   library_ms=None,
+                   ops_s=max(half / BF16_FLOPS_PER_S, half / F32_FLOPS_PER_S),
                    bytes_s=io / HBM_BYTES_PER_S)
         row["bound_ms"] = max(row["ops_s"], row["bytes_s"]) * 1e3
         lib_err = None
@@ -1042,7 +1055,7 @@ def time_flash(device):
         print(f"flash_attention {name}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, SDPA {sdpa}"
               f" (max |SDPA - kernel| {lib_err}), bound "
-              f"{row['bound_ms']:.4f} ms ({'bytes' if row['bytes_s'] >= row['ops_s'] else 'f32 operations'}; "
+              f"{row['bound_ms']:.4f} ms ({'bytes' if row['bytes_s'] >= row['ops_s'] else 'operations: p v at the f32 peak'}; "
               f"{flops / 1e9:.2f} GFLOP live), "
               f"{flops / row['ms'] / 1e9:.1f} TFLOP/s", flush=True)
     del flush
@@ -1067,6 +1080,33 @@ def _logit_tol(top):
     return max(LOGIT_ATOL, LOGIT_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7))
 
 
+def check_window_layer(qkv, kw, out):
+    """The window mask on served data: the first local layer's attention
+    output, as the kernel gave it in gemma3-12b's window prefill, against
+    the plain version on the same q, k and v, within ``ATTN_RTOL`` plus
+    ``ATTN_ATOL`` at the queries whose window leaves keys out (positions
+    ``window`` on); and the plain version without the mask (the control)
+    outside that tolerance there."""
+    w = kw["window"]
+    want = flash_attention_ref(*qkv, **kw).float()[:, :, w:]
+    tol = ATTN_RTOL * want.abs() + ATTN_ATOL
+    err = (out.float()[:, :, w:] - want).abs()
+    ctrl = (flash_attention_ref(*qkv, **{**kw, "window": 0}).float()[:, :, w:]
+            - want).abs()
+    beyond = float((ctrl > tol).float().mean())
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{GEMMA3} first local layer past its window: "
+                             f"kernel != plain, max |err| {float(err.max())}")
+    if not beyond > 0:
+        raise AssertionError(f"{GEMMA3} first local layer: the plain version "
+                             f"without the window is within tolerance too")
+    print(f"{GEMMA3} first local layer (window {w}), queries {w}-"
+          f"{qkv[0].shape[2] - 1}: kernel vs plain max |err| "
+          f"{float(err.max())} within {ATTN_RTOL} * |plain| + {ATTN_ATOL}; "
+          f"without the window mask max |diff| {float(ctrl.max())}, "
+          f"{beyond:.4f} of the outputs outside that tolerance", flush=True)
+
+
 def serve_gemma3(device):
     """gemma3-12b at full width, bound under ``mxu_int8``: lockstep through
     ``serve.main`` (CLI defaults: batch 4, prompt 16, gen 16) with the flash
@@ -1074,8 +1114,9 @@ def serve_gemma3(device):
     ``paged_attention`` at head dim 256; every engine stream against the
     lockstep stream of its prompt; then the 2048-token prefill over a
     ``windowed=False`` cache (past the 1024-token window) against the same
-    prefill with the route's flash entry replaced by its plain version.
-    Returns (launches of the counted runs, flash ms of the window prefill)."""
+    prefill with the route's flash entry replaced by its plain version,
+    with the controls of ``check_window_layer`` and the unwindowed plain
+    version. Returns the launches of the counted runs."""
     cfg = ARCHS[GEMMA3]
     argv = ["--arch", GEMMA3, "--backend", "mxu_int8"]
     t0 = time.perf_counter()
@@ -1119,10 +1160,23 @@ def serve_gemma3(device):
     def plain_reordered(*a, **kw):      # the plain version, 256-key chunks
         return flash_attention_ref(*a, **{**kw, "bk": WINDOW_REORDER_BK})
 
+    def plain_unwindowed(*a, **kw):     # the control: no window mask at all
+        return flash_attention_ref(*a, **{**kw, "window": 0})
+
+    local = {}
+
+    def kernel_kept(q, k, v, **kw):     # the kernel; keeps the first local call
+        out = flash_attention.flash_attention(q, k, v, **kw)
+        if kw["window"] > 0 and not local:
+            local.update(qkv=(q.clone(), k.clone(), v.clone()), kw=kw,
+                         out=out.clone())
+        return out
+
     logits = {}
-    for name, entry in (("kernel", flash_attention.flash_attention),
+    for name, entry in (("kernel", kernel_kept),
                         ("plain", flash_attention_ref),
-                        ("reordered plain", plain_reordered)):
+                        ("reordered plain", plain_reordered),
+                        ("unwindowed plain", plain_unwindowed)):
         real, layers.flash_attention = layers.flash_attention, entry
         try:
             cache = model.init_cache(1, GEMMA3_WINDOW_PROMPT, device=device,
@@ -1146,11 +1200,17 @@ def serve_gemma3(device):
                              "flash_attention": cfg.n_layers})
             for k, n in n_launch.items():
                 launches[k] += n
+    check_window_layer(**local)
     a, b = logits["kernel"], logits["plain"]
     diff = float((a - b).abs().max())
     spread = float((logits["reordered plain"] - b).abs().max())
+    control = float((logits["unwindowed plain"] - b).abs().max())
     top = float(b.abs().max())
     tol = max(_logit_tol(top), 2 * spread)
+    if not control > tol:
+        raise AssertionError(f"{GEMMA3} window prefill: without the window "
+                             f"mask the logits move only {control} <= {tol}:"
+                             f" the logit gate cannot see the mask")
     top2 = torch.topk(b, 2).values
     margin = float(top2[0] - top2[1])
     tie = int(a.argmax()) != int(b.argmax())
@@ -1165,7 +1225,8 @@ def serve_gemma3(device):
     print(f"{GEMMA3} window prefill: last-position logits kernel vs plain "
           f"attention max |diff| {diff} <= {tol} ({what}); argmax "
           f"{'a flagged tie' if tie else 'equal'} (plain top-2 margin "
-          f"{margin})", flush=True)
+          f"{margin}); without the window mask the plain version's logits "
+          f"move {control} > {tol}", flush=True)
     del params, eng, model
     torch.cuda.empty_cache()
     return launches
