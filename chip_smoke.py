@@ -7,7 +7,9 @@ Phases (any failure exits non-zero before the result lines are printed):
 
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (five
    sources, one ``nvcc`` each, in parallel) and print the card's name and
-   power limit.
+   power limit, and each flash instantiation's registers, spills and shared
+   memory from ptxas' report (a tensor-core instantiation that spills
+   fails).
 2. Hold each kernel bit-exact against its plain PyTorch version on the card,
    at every GEMM shape of the served model (smollm-360m: K x N in
    {960x960, 960x320, 960x2560, 2560x960, 960x49152}, M in {4, 64}) and at
@@ -20,6 +22,9 @@ Phases (any failure exits non-zero before the result lines are printed):
    per model GEMM, n_forwards * (7 * n_layers + 1) times, the flash-attention
    kernel once per layer of the prefill (n_layers times), every other kernel
    never, and the unbound streams must equal the bound ones bit for bit.
+   In every counted run (here and in phases 12-13; the models are bf16)
+   each flash launch must have run the tensor-core variant
+   (``flash_attention.tc_launches`` equal to its ``launches``).
 4. Check outputs: tokens in range; full-width logits finite; on a small
    (reduced) model the card's logits agree with the CPU's plain versions.
 5. Trace 4 decode steps of the same configuration with
@@ -78,10 +83,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    attention (32/16 heads, head dim 128, softcap 50, window 4096) at 4608
    tokens, ragged per-batch live lengths causal and not. Then timed there
    with its plain version and ``scaled_dot_product_attention`` (same
-   inputs and mask; none with a softcap), beside the bound (per live pair
-   the bf16 q k^T flops at the bf16 tensor-core peak and the f32 p v flops
-   at the f32 peak, the longer of the two, or the bytes read and written
-   once).
+   inputs and mask; none with a softcap), beside the bound (4 D flops per
+   live pair and head at the bf16 tensor-core peak, or the bytes read and
+   written once, whichever take longer), and once the former f32-priced
+   bound (p v at the f32 peak).
 12. gemma3-12b at its full published width (48 layers, d_model 3840, 16/8
    heads, head dim 256, d_ff 15360, vocab 262144, bf16, random weights from
    seed 0), bound under ``mxu_int8``: lockstep through ``serve.main``
@@ -122,6 +127,7 @@ GEMM or the delta GEMM: their ``library_ms`` are null.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -216,6 +222,29 @@ GEMM_KERNEL = {
     (False, "approx_delta"): "delta_gemm"}
 
 
+def flash_build_report():
+    """Registers, spills and shared memory of each instantiation of the
+    flash kernel, from ptxas' report in its build log; raises if a
+    tensor-core instantiation spills."""
+    log = _build.library_path("flash_attention").with_suffix(".log")
+    for entry in log.read_text().split("Compiling entry function '")[1:]:
+        name = entry.split("'")[0]
+        d = int(re.search(r"Li(\d+)E", name).group(1))
+        regs = int(re.search(r"Used (\d+) registers", entry).group(1))
+        spill = [int(x) for x in re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            entry).groups()]
+        tc = "flash_tc_kernel" in name
+        dt = torch.bfloat16 if tc else torch.float32
+        print(f"flash_attention {'tensor-core' if tc else 'SIMT'} "
+              f"instantiation at D {d}: {regs} registers, spill stores/"
+              f"loads {spill[0]}/{spill[1]} B, "
+              f"{flash_attention.smem_bytes(dt, dt, d)} B dynamic shared "
+              f"memory", flush=True)
+        if tc and any(spill):
+            raise AssertionError(f"flash tensor-core kernel spills at D {d}")
+
+
 def _smi(query: str) -> str:
     return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                            "--format=csv,noheader"], check=True,
@@ -277,11 +306,19 @@ def check_kernels(cfg, device):
 
 def _counted(fn):
     """fn() with every launch counter set to 0 just before and read just
-    after: (result, {kernel: launches})."""
+    after: (result, {kernel: launches}). The counted runs serve bf16 models,
+    so every flash launch in them must have run the tensor-core variant
+    (``flash_attention.tc_launches``)."""
     for k in KERNELS.values():
         k["module"].launches = 0
+    flash_attention.tc_launches = 0
     out = fn()
-    return out, {name: k["module"].launches for name, k in KERNELS.items()}
+    launches = {name: k["module"].launches for name, k in KERNELS.items()}
+    if flash_attention.tc_launches != launches["flash_attention"]:
+        raise AssertionError(f"{flash_attention.tc_launches} of "
+                             f"{launches['flash_attention']} flash launches "
+                             "ran the tensor-core kernel")
+    return out, launches
 
 
 def _check_launches(what, launches, counts):
@@ -1021,12 +1058,13 @@ def time_flash(device):
     computes the same attention) at FLASH_SHAPES, with the bound: the
     operations or q, k, v and the output read or written once at the memory
     rate, whichever take longer. Each live (query, key) pair and head costs
-    2 D flops of q k^T, whose operands are bf16 (products of two bf16 values
-    are exact in f32, so they may run on the bf16 tensor cores), and 2 D of
-    p v, whose p is f32 (the f32 peak outside the tensor cores); the two
-    halves run on separate units, so the operations take the longer of the
-    two. Returns per-shape rows and the totals of gemma3-12b's 2048-token
-    prefill (40 local + 8 global layers)."""
+    4 D flops (2 D of q k^T, 2 D of p v), all of which a tensor-core kernel
+    can run at the bf16 peak (the kernel's split of p into two bf16 halves
+    makes it 6 D; the bound counts the function's 4 D). Beside it the
+    former f32-priced bound, which put p v at the f32 peak outside the
+    tensor cores (q k^T at the bf16 peak, the longer of the two), is
+    printed once. Returns per-shape rows and the totals of gemma3-12b's
+    2048-token prefill (40 local + 8 global layers)."""
     flush = torch.empty(256 << 20, dtype=torch.int8, device=device)
     rows = {}
     for i, (name, b, h, kh, sq, skv, d, causal, window, softcap,
@@ -1041,10 +1079,11 @@ def time_flash(device):
         flops = 2 * half
         io = 2 * (2 * b * h * sq * d + 2 * b * kh * skv * d)
         row = dict(ms=_time_ms(kern, flush), plain_ms=_time_ms(plain, flush),
-                   library_ms=None,
-                   ops_s=max(half / BF16_FLOPS_PER_S, half / F32_FLOPS_PER_S),
+                   library_ms=None, ops_s=flops / BF16_FLOPS_PER_S,
                    bytes_s=io / HBM_BYTES_PER_S)
         row["bound_ms"] = max(row["ops_s"], row["bytes_s"]) * 1e3
+        row["f32_bound_ms"] = max(half / BF16_FLOPS_PER_S,
+                                  half / F32_FLOPS_PER_S, row["bytes_s"]) * 1e3
         lib_err = None
         if lib is not None:
             row["library_ms"] = _time_ms(lib, flush)
@@ -1055,7 +1094,7 @@ def time_flash(device):
         print(f"flash_attention {name}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, SDPA {sdpa}"
               f" (max |SDPA - kernel| {lib_err}), bound "
-              f"{row['bound_ms']:.4f} ms ({'bytes' if row['bytes_s'] >= row['ops_s'] else 'operations: p v at the f32 peak'}; "
+              f"{row['bound_ms']:.4f} ms ({'bytes' if row['bytes_s'] >= row['ops_s'] else 'operations: 4 D flops per live pair at the bf16 tensor-core peak'}; "
               f"{flops / 1e9:.2f} GFLOP live), "
               f"{flops / row['ms'] / 1e9:.1f} TFLOP/s", flush=True)
     del flush
@@ -1065,11 +1104,13 @@ def time_flash(device):
            "gemma3-12b global": n_global}
     tot = {key: sum(n * rows[name][key] for name, n in per.items())
            for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_s",
-                       "bytes_s")}
+                       "bytes_s", "f32_bound_ms")}
     print(f"flash_attention per gemma3-12b {GEMMA3_WINDOW_PROMPT}-token "
           f"prefill ({per}): kernel {tot['ms']:.4f} ms, plain "
           f"{tot['plain_ms']:.4f} ms, SDPA {tot['library_ms']:.4f} ms, bound "
-          f"{tot['bound_ms']:.4f} ms", flush=True)
+          f"{tot['bound_ms']:.4f} ms (operations: 4 D flops per live pair at "
+          f"the bf16 tensor-core peak; the former f32-priced bound, p v at "
+          f"the f32 peak: {tot['f32_bound_ms']:.4f} ms)", flush=True)
     return tot
 
 
@@ -1244,6 +1285,7 @@ def main() -> int:
     _build.build_all()
     print(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f}s",
           flush=True)
+    flash_build_report()
     name_power = _smi("name,power.limit")
     sm_clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
     print(f"device: {torch.cuda.get_device_name(0)}; max SM clock "
@@ -1306,6 +1348,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_s"] >= t["ops_s"] else "operations",
             "library_ms": t["library_ms"]})
+    print(f"flash_attention: all {launches['flash_attention']} launches of "
+          f"the counted runs ran the tensor-core kernel", flush=True)
     print(f"total {time.perf_counter() - t0:.1f}s", flush=True)
     print(name_power)
     print(json.dumps({"kernels": entries}))

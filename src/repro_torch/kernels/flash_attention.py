@@ -16,8 +16,11 @@ kernel masks the tails). ``bq``/``bk`` are taken for parity: they set the
 chunks of the plain version (``ref.flash_attention_ref``), while the kernel
 uses its own tiles; the two agree within float rounding.
 
-``launches`` counts the kernel's launches; it changes only where the kernel
-is launched.
+The kernel has two variants, chosen by dtype alone: q, k and v all bf16
+(every served model) take the tensor-core kernel, any f32 operand the SIMT
+kernel (``variant``). ``launches`` counts every launch of either and
+``tc_launches`` those of the tensor-core kernel; both change only where the
+kernel is launched.
 """
 from __future__ import annotations
 
@@ -35,7 +38,9 @@ HEAD_DIMS = (16, 64, 80, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DEFAULT_BQ = 128
 DEFAULT_BK = 128
+VARIANTS = ("simt", "tensor_core")
 launches = 0
+tc_launches = 0
 
 
 @functools.cache
@@ -46,7 +51,23 @@ def _lib():
                    + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    for name, n_args in (("flash_attention_variant", 2),
+                         ("flash_attention_smem", 3)):
+        f = getattr(lib, name)
+        f.argtypes, f.restype = [ctypes.c_int] * n_args, ctypes.c_int
+    return lib
+
+
+def variant(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    """The kernel variant a launch with these dtypes runs (``VARIANTS``), as
+    the C launcher chooses it."""
+    return VARIANTS[_lib().flash_attention_variant(DTYPES[q_dtype],
+                                                   DTYPES[kv_dtype])]
+
+
+def smem_bytes(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int) -> int:
+    """Dynamic shared memory of one block of that variant at head dim d."""
+    return _lib().flash_attention_smem(DTYPES[q_dtype], DTYPES[kv_dtype], d)
 
 
 def _check(q, k, v, kvl):
@@ -94,16 +115,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     one back).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream, or raise: on another device, dtype (float32 and
-    bfloat16, k and v alike), layout (last dim contiguous, rows 16-byte
-    aligned) or head dim (``HEAD_DIMS``).
+    the current stream (the tensor-core variant when q, k and v are all
+    bfloat16, else the SIMT one), or raise: on another device, dtype
+    (float32 and bfloat16, k and v alike), layout (last dim contiguous, rows
+    16-byte aligned) or head dim (``HEAD_DIMS``).
     """
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_ref(q, k, v, kv_valid_len=kv_valid_len,
                                    causal=causal, window=window,
                                    softcap=softcap, bq=bq, bk=bk)
     _check(q, k, v, kv_valid_len)
-    global launches
+    global launches, tc_launches
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     kvl_ptr, kvl_all = None, skv
@@ -115,14 +137,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if not out.numel():
         return out
-    fn = _lib()
+    lib = _lib()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl_ptr,
+        err = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl_ptr,
                  out.data_ptr(), b, h, kh, sq, skv, d, kvl_all, *strides,
                  int(causal), int(window), DTYPES[q.dtype], DTYPES[k.dtype],
                  float(softcap), d ** -0.5, stream)
     launches += 1
+    tc_launches += lib.flash_attention_variant(DTYPES[q.dtype],
+                                               DTYPES[k.dtype])
     _build.check(NAME, err)
     return out

@@ -336,7 +336,8 @@ FLASH = [(2, 4, 4, 64, 64, True, 0, 0.0, None, "bhsd"),
          (2, 8, 4, 130, 130, True, 32, 50.0, None, "bhsd"),     # softcap
          (3, 6, 2, 40, 96, False, 0, 0.0, [5, 70, 96], "bhsd"),  # ragged
          (2, 4, 1, 77, 77, True, 0, 0.0, 50, "bshd"),
-         (2, 4, 2, 33, 70, False, 0, 0.0, None, "bhsd")]
+         (2, 4, 2, 33, 70, False, 0, 0.0, None, "bhsd"),
+         (1, 4, 2, 333, 333, True, 100, 0.0, None, "bshd")]   # K/V ring wraps
 
 
 def flash_inputs(seed, *, b, h, kh, sq, skv, d, dtype, layout, device):
@@ -352,8 +353,18 @@ def flash_inputs(seed, *, b, h, kh, sq, skv, d, dtype, layout, device):
 
 @pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
 def test_flash_attention_matches_plain(device, d):
-    """Every FLASH case in f32 and bf16 at head dim d, TF32 off."""
+    """Every FLASH case in f32 (the SIMT kernel) and bf16 (the tensor-core
+    kernel) at head dim d, TF32 off: Sq and Skv off the tile grid, GQA, a
+    window whose later q-tiles skip their first K tiles, softcap, ragged
+    and non-causal, a K loop long enough to wrap the K/V ring. Each bf16
+    launch counts in ``tc_launches``, each f32 one does not. (A row whose
+    kv_valid_len is 0 admits no key: out of contract, not tested.)"""
     torch.backends.cuda.matmul.allow_tf32 = False
+    assert flash_attention.variant(torch.bfloat16, torch.bfloat16) == \
+        "tensor_core"
+    for dt in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32)):
+        assert flash_attention.variant(*dt) == "simt"
     for i, case in enumerate(FLASH):
         b, h, kh, sq, skv, causal, window, softcap, kvl, layout = case
         for dtype in (torch.float32, torch.bfloat16):
@@ -364,10 +375,11 @@ def test_flash_attention_matches_plain(device, d):
                 kvl = torch.tensor(kvl, dtype=torch.int32, device=device)
             kw = dict(kv_valid_len=kvl, causal=causal, window=window,
                       softcap=softcap)
-            before = flash_attention.launches
+            before = (flash_attention.launches, flash_attention.tc_launches)
             got = flash_attention.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            assert flash_attention.launches == before + 1
+            assert (flash_attention.launches, flash_attention.tc_launches) \
+                == (before[0] + 1, before[1] + (dtype == torch.bfloat16))
             assert got.shape == q.shape and got.dtype == dtype
             want = flash_attention_ref(q, k, v, **kw).float()
             err = (got.float() - want).abs()

@@ -241,6 +241,108 @@ def test_flash_window_skip_is_exact():
                                    atol=1e-6)
 
 
+# The tensor-core kernel's tiles: 64 query rows a warpgroup, 64 keys a tile
+TC_BQ = TC_BK = 64
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4     # chip_smoke.py's kernel gate
+
+
+def _tc_emulation(q, k, v, *, kv_valid_len, causal, window, softcap,
+                  split=True):
+    """The bf16 tensor-core kernel's arithmetic in torch on the CPU: q scaled
+    in bf16, q k^T as f32 sums of exact bf16 products, softcap and masks,
+    the online recurrence over TC_BK-key tiles from the first tile each
+    TC_BQ-row q-tile's window reaches to its causal frontier, and p v as
+    hi v + lo v with hi = bf16(p), lo = bf16(p - hi), summed in f32 (or,
+    ``split=False``, one bf16 p). Returns (B, H, Sq, D) in bf16."""
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    qs = (q.float() * d ** -0.5).to(torch.bfloat16).float()
+    pad = -skv % TC_BK                       # rows past Skv are zero-filled
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    kf = kf.repeat_interleave(h // kh, dim=1)
+    vf = vf.repeat_interleave(h // kh, dim=1)
+    lens = kv_valid_len if isinstance(kv_valid_len, list) else [
+        skv if kv_valid_len is None else kv_valid_len] * b
+    win = window if window > 0 else 1 << 30
+    out = torch.zeros(b, h, sq, d)
+    for bi, n in enumerate(lens):
+        n = min(n, skv)
+        for w0 in range(0, sq, TC_BQ):
+            rows = torch.arange(w0, min(w0 + TC_BQ, sq))
+            kt0, kt1 = 0, -(-n // TC_BK)
+            if causal:
+                kt1 = min(kt1, int(rows[-1]) // TC_BK + 1)
+                if window > 0:
+                    kt0 = max(0, w0 - window + 1) // TC_BK
+            m = torch.full((h, len(rows)), L.BIG_NEG)
+            acc_l = torch.zeros(h, len(rows))
+            acc = torch.zeros(h, len(rows), d)
+            for kt in range(kt0, kt1):
+                keys = torch.arange(kt * TC_BK, (kt + 1) * TC_BK)
+                s = qs[bi][:, rows] @ kf[bi][:, keys].transpose(1, 2)
+                if softcap:
+                    s = softcap * torch.tanh(s / softcap)
+                live = (keys < n)[None, :].expand(len(rows), -1)
+                if causal:
+                    delta = rows[:, None] - keys[None, :]
+                    live = live & (delta >= 0) & (delta < win)
+                s = torch.where(live, s, L.BIG_NEG)
+                m_new = torch.maximum(m, s.max(-1).values)
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                acc_l = acc_l * corr + p.sum(-1)
+                hi = p.to(torch.bfloat16).float()
+                if split:
+                    lo = (p - hi).to(torch.bfloat16).float()
+                    pv = hi @ vf[bi][:, keys] + lo @ vf[bi][:, keys]
+                else:
+                    pv = hi @ vf[bi][:, keys]
+                acc = acc * corr[..., None] + pv
+                m = m_new
+            out[bi][:, rows] = acc / acc_l.clamp_min(1e-30)[..., None]
+    return out.to(torch.bfloat16)
+
+
+# (B, H, KH, Sq, Skv, causal, window, softcap, kv_valid_len): off the tile
+# grid and GQA throughout; a window whose last q-tile (rows 128-199) starts
+# at key tile 1; softcap 50; ragged live lengths non-causal; a 512-token
+# causal prompt
+TC_CASES = [(2, 4, 2, 200, 200, True, 0, 0.0, None),
+            (1, 4, 2, 200, 200, True, 48, 0.0, None),
+            (2, 4, 2, 130, 130, True, 32, 50.0, None),
+            (3, 6, 2, 40, 96, False, 0, 0.0, [5, 70, 96]),
+            (1, 4, 2, 512, 512, True, 0, 0.0, None)]
+
+
+def test_flash_tensor_core_split_p_within_one_bf16_ulp():
+    """The tensor-core kernel's arithmetic (``_tc_emulation``) within one
+    bf16 ulp plus 1e-4 of the plain version at head dims 16-256 on every
+    TC_CASES case; with one bf16 p instead of the two halves, the same gate
+    fails on some case (so the test tells the two apart)."""
+    control_out = []
+    for d in fa.HEAD_DIMS:
+        for i, (b, h, kh, sq, skv, causal, window, softcap,
+                kvl) in enumerate(TC_CASES):
+            rng = np.random.default_rng(100 * d + i)
+            q = _t(_normal(rng, b, h, sq, d)).to(torch.bfloat16)
+            k = _t(_normal(rng, b, kh, skv, d)).to(torch.bfloat16)
+            v = _t(_normal(rng, b, kh, skv, d)).to(torch.bfloat16)
+            kw = dict(kv_valid_len=kvl, causal=causal, window=window,
+                      softcap=softcap)
+            want = fa.flash_attention(
+                q, k, v, **{**kw, "kv_valid_len": None if kvl is None
+                            else torch.tensor(kvl)}).float()
+            bound = BF16_RTOL * want.abs() + BF16_ATOL
+            err = (_tc_emulation(q, k, v, **kw).float() - want).abs()
+            assert (err <= bound).all(), (d, i, float(err.max()))
+            if d == 128:
+                one = _tc_emulation(q, k, v, split=False, **kw).float()
+                control_out.append(float(((one - want).abs() > bound)
+                                         .float().mean()))
+    assert max(control_out) > 0, control_out
+
+
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     """The checks the wrapper makes before a launch (CPU tensors never get
     that far: they take the plain version)."""
