@@ -51,10 +51,10 @@
 //    * p is split, not rounded: hi = bf16(p), lo = bf16(p - hi) (p - hi is
 //      exact in f32), so hi + lo carries 16 of p's 24 bits and the two bf16
 //      products, summed in f32, keep the f32 function within one bf16 ulp
-//      of the output. A single bf16 p (what SDPA does) leaves 3.6-5 % of
-//      the outputs of 512-1024-token prompts more than one bf16 ulp off
-//      (tests/test_torch_flash.py emulates both). The split costs 6*D flops
-//      a live pair instead of 4*D: its ceiling is 1.5x the bound.
+//      of the output; a single bf16 p (what SDPA does) leaves some outputs
+//      more than one bf16 ulp off (tests/test_torch_flash.py emulates both
+//      against the plain version). The split costs 6*D flops a live pair
+//      instead of 4*D: its ceiling is 1.5x the bound.
 //    * K/V tiles (bf16) go through a ring of STAGES slots (2 at D = 256, 3
 //      below) by TMA: one thread issues a tile's boxes, which complete on
 //      the slot's mbarrier, and the warpgroups wait on that. The last of
