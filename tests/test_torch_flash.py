@@ -18,6 +18,11 @@ The route: on a reduced model, ``transformer.prefill`` sends every layer's
 attention through the wrapper and ``decode_step``/``chunk_step`` never do;
 on the CPU the prefill's logits and cache equal, bit for bit, those of the
 ``layers.chunked_attention`` call the model made before the route.
+
+The CUDA kernel's bf16 arithmetic (bf16 products summed in f32, p split into
+bf16 halves, 64-key tiles) is emulated in torch and held against the plain
+version within the card's gate, one bf16 ulp plus 1e-4; one bf16 p, the
+control, must break that gate.
 """
 import functools
 
