@@ -9,6 +9,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    sources, one ``nvcc`` each, in parallel) and print the card's name and
    power limit, and each flash instantiation's registers, spills and shared
    memory from ptxas' report (a tensor-core instantiation that spills
+   fails), and the same of the served paged-attention instantiations (bf16
+   q over bf16 and int8 pools at head dims 64 and 256; one that spills
    fails).
 2. Hold each kernel bit-exact against its plain PyTorch version on the card,
    at every GEMM shape of the served model (smollm-360m: K x N in
@@ -39,7 +41,11 @@ Phases (any failure exits non-zero before the result lines are printed):
    bf16 and int8 pools, permuted and fragmented tables, ragged
    kv_valid_len including 0 and rows past one chunk, Sq = 1 (decode) and
    Sq = 8 (a prefill chunk), window and softcap cases, n_splits 1 and 3;
-   within one bf16 ulp (``ATTN_RTOL``) plus ``ATTN_ATOL``.
+   and at 4096-position decode rows (smollm-360m's and gemma3-12b's heads,
+   D = 64 and 256, 512-page tables, which the kernel splits over blocks on
+   its own), with rows whose live range is shorter than one split; within
+   one bf16 ulp (``ATTN_RTOL``) plus ``ATTN_ATOL``, rows with kv_valid_len
+   == 0 zero.
 8. Serve smollm-360m at full width through the engine
    (``serve.run_engine``, 4 slots, block 8, prefill chunk 8, prefix cache
    on) under ``mxu_int8`` and ``approx_lut``, bound: 16 requests with
@@ -58,7 +64,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``torch.nn.functional.scaled_dot_product_attention`` over the same K/V
    gathered into contiguous tensors beforehand (the gather is not timed),
    with the same mask, beside the bound (live KV bytes over the memory
-   rate); totals per served batch, 32 layers per step.
+   rate); totals per served batch, 32 layers per step. Then one
+   long-context decode row timed the same way, on its own line: batch 4,
+   Sq 1, each row live to 4096 positions through a permuted table of block
+   8 (21 MB of bf16 K/V).
 10. The ``approx_delta`` slice. The fused delta kernel bit-exact against its
    plain version (its own K-block) and against the product-table kernel at
    every served shape and odd shapes, k in {0, 2, 4, 6, 8} at the exact
@@ -95,7 +104,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    launches per chunk step), every engine stream equal to the lockstep
    stream of its prompt or a flagged tie; the engine's idle share (as in
    phase 8) and ``paged_attention`` timed at every chunk step of that trace
-   (as in phase 9, 48 layers per step).
+   (as in phase 9, 48 layers per step), and its long-context decode row
+   (134 MB of bf16 K/V).
 13. gemma3-12b's 2048-token prefill (batch 1) over a ``windowed=False``
    cache, past the 1024-token window: 48 flash launches; its last-position
    logits within ``LOGIT_ULPS`` bf16 ulps at the largest |logit|
@@ -188,6 +198,11 @@ WINDOW_REORDER_BK = 256
 # value) plus an absolute term for sums that cancel near zero
 ATTN_RTOL, ATTN_ATOL = 2.0 ** -7, 1e-4
 ATTN_CHUNK = 1024                       # the engine's attn_chunk
+# the long-context decode row: each of 4 rows live to 4096 positions through
+# a permuted 512-page table of block 8
+LONG_LEN, LONG_PAGES = 4096, 512
+GEMMA3 = "gemma3-12b"
+GEMMA3_WINDOW_PROMPT = 2048      # 2x gemma3-12b's 1024-token window
 ENGINE_ARGS = ["--engine", "--batch", "4", "--prompt-len", "48",
                "--gen-len", "16", "--block-size", "8", "--prefill-chunk", "8"]
 N_REQUESTS, SYSTEM_LEN = 16, 16
@@ -243,6 +258,45 @@ def flash_build_report():
               f"memory", flush=True)
         if tc and any(spill):
             raise AssertionError(f"flash tensor-core kernel spills at D {d}")
+
+
+# the served paged-attention instantiations: (q dtype code, pool dtype code,
+# head dim, rows per block) of bf16 q over bf16 and int8 pools at smollm's
+# and gemma3-12b's head dims, in blocks of 2 rows (the engine's decode and
+# prefill chunks) and 8
+PAGED_SERVED = {(1, kv, d, rt) for kv in (1, 2) for d in (64, 256)
+                for rt in (2, 8)}
+DTYPE_NAMES = {0: "f32", 1: "bf16", 2: "int8"}
+
+
+def paged_build_report():
+    """Registers, spills and shared memory of the served instantiations of
+    the paged-attention kernel, from ptxas' report in its build log; raises
+    if one spills."""
+    log = _build.library_path("paged_attention").with_suffix(".log")
+    seen = set()
+    for entry in log.read_text().split("Compiling entry function '")[1:]:
+        key = tuple(int(x) for x in re.search(
+            r"paged_attention_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)E",
+            entry).groups())
+        if key not in PAGED_SERVED:
+            continue
+        seen.add(key)
+        regs = int(re.search(r"Used (\d+) registers", entry).group(1))
+        spill = [int(x) for x in re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            entry).groups()]
+        smem = int(re.search(r"(\d+) bytes smem", entry).group(1))
+        print(f"paged_attention q {DTYPE_NAMES[key[0]]}, pools "
+              f"{DTYPE_NAMES[key[1]]}, D {key[2]}, {key[3]} rows a block: "
+              f"{regs} registers, spill "
+              f"stores/loads {spill[0]}/{spill[1]} B, {smem} B static and "
+              f"{paged_attention.SMEM_BYTES} B dynamic shared memory at most",
+              flush=True)
+        if any(spill):
+            raise AssertionError(f"paged_attention spills at {key}")
+    if seen != PAGED_SERVED:
+        raise AssertionError(f"no ptxas report of {PAGED_SERVED - seen}")
 
 
 def _smi(query: str) -> str:
@@ -552,12 +606,14 @@ def time_kernels(cfg, device, sm_clock_hz):
     return tot
 
 
-def paged_inputs(seed, *, b, sq, width, kvl, kv_dtype, device, bs=8):
-    """smollm-360m's attention at one layer: q (b, sq, 15, 64) bf16, pools
-    (n_blocks + 1, 8, 5, 64) in ``kv_dtype`` (int8 payloads at scale 32), a
-    permuted table per row with the dump index past its live blocks, and
-    query positions ending at each row's live length."""
-    cfg = ARCHS[ARCH]
+def paged_inputs(seed, *, b, sq, width, kvl, kv_dtype, device, bs=8,
+                 arch=ARCH):
+    """One layer's attention of ``arch`` (smollm-360m: q (b, sq, 15, 64)
+    bf16, pools (n_blocks + 1, 8, 5, 64)) with pools in ``kv_dtype`` (int8
+    payloads at scale 32), a permuted table per row with the dump index
+    past its live blocks, and query positions ending at each row's live
+    length."""
+    cfg = ARCHS[arch]
     h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = torch.Generator(device="cpu").manual_seed(seed)
     n_blocks = b * width + 7
@@ -580,21 +636,26 @@ def paged_inputs(seed, *, b, sq, width, kvl, kv_dtype, device, bs=8):
 def check_paged(device):
     """Phase 7: the paged-attention kernel against its plain version;
     returns max |err| over the live rows."""
-    # (Sq, table width, kv_valid_len per row, chunk, window, softcap): the
-    # engine's tables (8 blocks, one chunk), then 32-block tables in 64-wide
-    # chunks (4 chunks: rows past one chunk, 3 splits)
-    cases = [(1, 8, [0, 13, 40, 64], ATTN_CHUNK, 0, 0.0),
-             (8, 8, [8, 0, 41, 64], ATTN_CHUNK, 0, 0.0),
-             (1, 32, [70, 0, 200, 256], 64, 0, 0.0),
-             (8, 32, [0, 77, 130, 256], 64, 0, 0.0),
-             (8, 32, [9, 150, 0, 256], 64, 24, 0.0),
-             (1, 32, [250, 0, 65, 8], 64, 0, 30.0)]
+    # (arch, Sq, table width, kv_valid_len per row, chunk, window,
+    # softcap): the engine's tables (8 blocks, one chunk), then 32-block
+    # tables in 64-wide chunks (4 chunks: rows past one chunk, 3 splits),
+    # then the long-context rows (512 blocks of 8) at both served head dims
+    cases = [(ARCH, 1, 8, [0, 13, 40, 64], ATTN_CHUNK, 0, 0.0),
+             (ARCH, 8, 8, [8, 0, 41, 64], ATTN_CHUNK, 0, 0.0),
+             (ARCH, 1, 32, [70, 0, 200, 256], 64, 0, 0.0),
+             (ARCH, 8, 32, [0, 77, 130, 256], 64, 0, 0.0),
+             (ARCH, 8, 32, [9, 150, 0, 256], 64, 24, 0.0),
+             (ARCH, 1, 32, [250, 0, 65, 8], 64, 0, 30.0),
+             (ARCH, 1, LONG_PAGES, [LONG_LEN] * 4, ATTN_CHUNK, 0, 0.0),
+             (GEMMA3, 1, LONG_PAGES, [LONG_LEN] * 4, ATTN_CHUNK, 0, 0.0),
+             (ARCH, 1, LONG_PAGES, [LONG_LEN, 5, 0, 300], ATTN_CHUNK, 0,
+              0.0)]
     worst, n = 0.0, 0
-    for i, (sq, width, kvl, chunk, window, softcap) in enumerate(cases):
+    for i, (arch, sq, width, kvl, chunk, window, softcap) in enumerate(cases):
         for kv_dtype in (torch.bfloat16, torch.int8):
             q, k, v, tables, kvl_t, qpos = paged_inputs(
                 i, b=len(kvl), sq=sq, width=width, kvl=kvl,
-                kv_dtype=kv_dtype, device=device)
+                kv_dtype=kv_dtype, device=device, arch=arch)
             want = paged_attention_ref(q, k, v, tables, kvl_t, qpos,
                                        window=window, softcap=softcap,
                                        chunk=chunk).float()
@@ -616,7 +677,8 @@ def check_paged(device):
                         f"{float(err.max())}")
     print(f"paged_attention within {ATTN_RTOL} * |plain| + {ATTN_ATOL} of "
           f"its plain version in {n} checks (bf16/int8 pools, Sq 1/8, "
-          f"window, softcap, n_splits 1/3): max |err| {worst}", flush=True)
+          f"window, softcap, n_splits 1/3, {LONG_LEN}-position rows at D 64 "
+          f"and 256): max |err| {worst}", flush=True)
     return worst
 
 
@@ -797,40 +859,61 @@ def time_paged(cfg, device, recorded):
         kvl = (pos + q_len).to(torch.int32)
         qpos = (pos[:, None] + torch.arange(t, device=device)[None, :]).to(
             torch.int32)
-        args = (q, kp, vp, tables, kvl, qpos)
-        kern = lambda: paged_attention.paged_attention(  # noqa: E731
-            *args, chunk=ATTN_CHUNK)
-        plain = lambda: paged_attention_ref(  # noqa: E731
-            *args, chunk=ATTN_CHUNK)
-        sq_, sk, sv, mask = _sdpa_inputs(*args)
-        lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            sq_, sk, sv, attn_mask=mask, enable_gqa=True)
-        live = (q_len > 0) & (kvl > 0)
-        if live.any():
-            diff = (lib().transpose(1, 2).float() - kern().float())[live]
-            lib_err = max(lib_err, float(diff.abs().max()))
-        elt = kp.element_size()
-        kv_pos = int(torch.clamp(kvl, max=tables.shape[1] * kp.shape[1])
-                     .sum())
-        io = (2 * kv_pos * kp.shape[2] * d * elt + 2 * q.numel()
-              * q.element_size() + tables.numel() * 4)
-        pairs = torch.clamp(torch.minimum(qpos + 1, kvl[:, None]), min=0)
-        ops = 4 * d * h * int(pairs.sum())
-        calls = cfg.n_layers
-        tot["ms"] += calls * _time_ms(kern, flush)
-        tot["plain_ms"] += calls * _time_ms(plain, flush)
-        tot["library_ms"] += calls * _time_ms(lib, flush)
-        tot["bytes_s"] += calls * io / HBM_BYTES_PER_S
-        tot["ops_s"] += calls * ops / BF16_FLOPS_PER_S
-        tot["bound_ms"] += calls * max(io / HBM_BYTES_PER_S,
-                                       ops / BF16_FLOPS_PER_S) * 1e3
-    del flush
+        row, err = _time_paged_call((q, kp, vp, tables, kvl, qpos),
+                                    (q_len > 0) & (kvl > 0), flush)
+        lib_err = max(lib_err, err)
+        for key in tot:
+            tot[key] += cfg.n_layers * row[key]
     print(f"paged_attention per served batch ({len(steps)} chunk steps x "
           f"{cfg.n_layers} layers): kernel {tot['ms']:.4f} ms, plain "
           f"{tot['plain_ms']:.4f} ms, SDPA on pre-gathered K/V "
           f"{tot['library_ms']:.4f} ms (max |SDPA - kernel| {lib_err}), "
           f"bound {tot['bound_ms']:.4f} ms", flush=True)
+    del eng, steps, kp, vp
+    args = paged_inputs(5, b=4, sq=1, width=LONG_PAGES, kvl=[LONG_LEN] * 4,
+                        kv_dtype=torch.bfloat16, device=device,
+                        arch=cfg.name)
+    row, err = _time_paged_call(args, args[4] > 0, flush)
+    del flush, args
+    print(f"paged_attention long-context decode row ({cfg.name}: batch 4, "
+          f"Sq 1, {LONG_LEN} live positions a row, {cfg.n_kv_heads} KV heads"
+          f" at D {d}, {row['kv_bytes'] / 1e6:.1f} MB of bf16 K/V): kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA on "
+          f"pre-gathered K/V {row['library_ms']:.4f} ms (max |SDPA - kernel| "
+          f"{err}), bound {row['bound_ms']:.4f} ms (bytes), "
+          f"{row['kv_bytes'] / row['ms'] / 1e9:.3f} TB/s of K/V",
+          flush=True)
     return tot
+
+
+def _time_paged_call(args, live, flush):
+    """One paged-attention call (q, pools, tables, kv_valid_len, positions)
+    timed: the kernel, its plain version and SDPA on K/V gathered before
+    timing, with the bound (live KV + q + output + table bytes over the
+    memory rate, or 4 * D flops per valid (query, key, head) over the bf16
+    peak); and max |SDPA - kernel| over the ``live`` rows."""
+    q, kp, vp, tables, kvl, qpos = args
+    kern = lambda: paged_attention.paged_attention(  # noqa: E731
+        *args, chunk=ATTN_CHUNK)
+    plain = lambda: paged_attention_ref(*args, chunk=ATTN_CHUNK)  # noqa: E731
+    sq_, sk, sv, mask = _sdpa_inputs(*args)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        sq_, sk, sv, attn_mask=mask, enable_gqa=True)
+    err = 0.0
+    if live.any():
+        diff = (lib().transpose(1, 2).float() - kern().float())[live]
+        err = float(diff.abs().max())
+    h, d = q.shape[2], q.shape[3]
+    kv_pos = int(torch.clamp(kvl, max=tables.shape[1] * kp.shape[1]).sum())
+    kv_bytes = 2 * kv_pos * kp.shape[2] * d * kp.element_size()
+    io = kv_bytes + 2 * q.numel() * q.element_size() + tables.numel() * 4
+    pairs = torch.clamp(torch.minimum(qpos + 1, kvl[:, None]), min=0)
+    ops = 4 * d * h * int(pairs.sum())
+    row = dict(ms=_time_ms(kern, flush), plain_ms=_time_ms(plain, flush),
+               library_ms=_time_ms(lib, flush),
+               bytes_s=io / HBM_BYTES_PER_S, ops_s=ops / BF16_FLOPS_PER_S)
+    row["bound_ms"] = max(row["bytes_s"], row["ops_s"]) * 1e3
+    return dict(row, kv_bytes=kv_bytes), err
 
 
 def check_delta(cfg, device):
@@ -970,8 +1053,6 @@ FLASH_SHAPES = [
     ("ragged non-causal", 3, 16, 8, 300, 512, 256, False, 0, 0.0,
      [100, 400, 512]),
 ]
-GEMMA3 = "gemma3-12b"
-GEMMA3_WINDOW_PROMPT = 2048      # 2x gemma3-12b's 1024-token window
 
 
 def _flash_inputs(seed, b, h, kh, sq, skv, d, kvl, device):
@@ -1286,6 +1367,7 @@ def main() -> int:
     print(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f}s",
           flush=True)
     flash_build_report()
+    paged_build_report()
     name_power = _smi("name,power.limit")
     sm_clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
     print(f"device: {torch.cuda.get_device_name(0)}; max SM clock "

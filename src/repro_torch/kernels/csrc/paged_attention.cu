@@ -8,61 +8,89 @@
 // q_positions (B,Sq) int32:
 //  * q is scaled by D**-0.5 in the query dtype before the f32 products;
 //  * KV positions >= kv_valid_len[b], past the causal frontier or outside the
-//    window are masked to BIG_NEG (not -inf) after the softcap;
-//  * each KV chunk of `chunk` positions (the caller's min(attn_chunk, W*bs))
-//    updates the online softmax in f32: m_new = max(m, chunk max),
-//    p = exp(s - m_new), l = l*corr + sum p, acc = acc*corr + p.V;
-//  * a row's scan stops at ceil(kv_valid_len/chunk) and at the causal
-//    frontier; rows with kv_valid_len == 0 return zeros;
-//  * n_splits > 1 splits the chunk range over blocks, each writing its
-//    partial (acc, m, l) in f32 for the log-sum-exp combine in the wrapper.
-// A row masked in every chunk it has seen so far holds m = BIG_NEG and
-// p = exp(0) = 1 for its masked columns; the next chunk with a live column
-// multiplies that state by corr = exp(BIG_NEG - m) = 0, so it cancels without
-// a NaN, as in the reference.
+//    window are masked after the softcap: they carry no weight, as the
+//    reference's BIG_NEG scores carry none once a row has seen a live one;
+//  * the softmax is online in f32 (m, l, acc) and the result acc / l;
+//  * rows that see no live position (kv_valid_len == 0) return zeros, and
+//    the dump row is the only pool row read past a table's live blocks.
+// The reference scans KV chunks of `chunk` positions in order; here the
+// positions are split over lane groups, warps and blocks and their states
+// merged by log-sum-exp, so the sums run in another order (within one bf16
+// ulp of the reference; tests/test_torch_paged_kernel.py emulates this
+// arithmetic in torch on the CPU).
 //
-// What bounds it on the H100: the KV bytes. At decode a query row does 4*D
-// flops per KV position against 2*D*bytes(pool) bytes read, about one flop
-// per byte for bf16, far below the ~295 the card needs before compute binds;
-// so the bound is the live KV bytes over the memory rate (3.35 TB/s).
+// What bounds it on the H100. At decode a query row does 4*D flops per KV
+// position against 2*D*bytes(pool) bytes read, about one flop per byte in
+// bf16, far below the ~295 the card needs before compute binds: the bound is
+// the live KV bytes over the memory rate (3.35 TB/s). At the engine's shapes
+// (at most 64 live positions a row, 20-32 (row, KV head) pairs) those bytes
+// take well under a microsecond, so what the kernel pays is the chain of
+// dependent memory round trips from launch to store (kv_len and the table,
+// then K/V) and each warp's chain of dependent latencies per stage (score
+// shuffles, exps). Over long contexts the bytes bind only where enough
+// warps keep enough stages in flight: the split over blocks and the rings
+// are there for that.
 //
-// Design (simple and right first; wgmma/TMA come later):
-//  * One block of 128 threads per (query tile, KV head, batch row x split).
-//    GQA: the block holds the G = H/KH query heads of its KV head for up to
-//    `qt` query positions (R = G*qt rows, at most 64; 32 at D = 256), so
-//    each KV byte read serves G*qt rows. Head dims 16, 32, 64, 128, 256.
-//  * KV is staged 64 positions at a time: every thread issues 16-byte
-//    cp.async copies of pool rows straight from the block the table names
-//    into shared memory (rows padded so 16-byte row reads are free of bank
-//    conflicts). Tiles past the live length or the causal frontier are not
-//    loaded at all.
-//  * The chunk's scores stay in shared memory (R x chunk floats), so the
-//    softmax update sees the whole chunk as the reference does. Scores:
-//    one thread per KV position, its K row in registers (128 values at a
-//    time), FMAs over D. P.V: one thread per (row group, d), two columns d
-//    at D = 256, the V column read from shared memory.
+// Design:
+//  * A block takes RT rows (query position x query head of one KV head, so
+//    each KV byte serves every head of its group), one batch row, and one
+//    split of the row's table pages: 2 rows in 8 warps (bf16 q, wherever
+//    the grid of 2-row tiles fits the card's resident blocks: every served
+//    decode and prefill chunk), else 8 rows in 4 warps. Small tiles give
+//    the card more blocks, and each warp fewer stages in a row.
+//  * Every load in flight before the first wait. The block reads kv_len, the
+//    rows' query positions, its split's table entries (into shared memory)
+//    and q (16-byte vector loads, scaled in q's dtype, into registers) all at
+//    once; one barrier; then each warp issues the cp.async copies of the K
+//    and V rows of its first NS stages together. Tiles past the live length,
+//    the causal frontier or before the window are never loaded.
+//  * The live range split over warps: a KV row is spread over L = D/8 lanes
+//    (8 elements a lane, never a whole 128-float piece), so a warp takes
+//    32/L positions at a time, NP = 2 per lane group per stage; stages are
+//    dealt to the warps in turn. Each lane copies exactly the bytes it later
+//    reads (its 8 elements of each of its positions' K and V rows) into its
+//    warp's ring of NS stages, so no barrier guards the ring: a lane waits
+//    on its own copy groups (cp.async.wait_group), computes the stage, and
+//    issues the stage NS ahead into the slot it just read.
+//  * Each lane group keeps its own online softmax (m, l, acc[8] per row) in
+//    registers: scores are partial dot products reduced over the group's
+//    lanes by shuffles, p stays in registers. At the end the groups of a
+//    warp merge by shuffles and the warps once through shared memory.
+//  * The live range split over blocks when the grid is short: the wrapper
+//    picks the split from the table's width and the SM count (the caller's
+//    n_splits is a floor). Each block writes its state (acc, m, l) in f32;
+//    the last block of a (row tile, KV head, batch row) to finish, found by
+//    an atomic counter that it resets to 0, merges them inside the launch
+//    (every split's state requested at once) and writes the output. Splits
+//    past a row's live range write l = 0 and acc = 0.
+//  * Registers follow the rows: q and acc take 8*RT each (16 a thread at
+//    2 rows). A stage computes all RT rows without a branch per row (rows
+//    past the live ones hold q = 0 and are never stored), so the compiler
+//    interleaves the rows' and positions' shuffle chains.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int KT = 64;            // KV positions per shared-memory tile
-constexpr int RMAX = 64;          // query rows (G x query positions) per block
-constexpr int SMEM_LIMIT = 232448;
+constexpr int RT_MAX = 8;           // rows per block, at most
+constexpr int SPLIT_MAX = 256;      // blocks a row tile is split over
+constexpr int EL = 8;               // elements of a KV row per lane
+constexpr int NP = 2;               // positions per lane group per stage
+constexpr int RING_BYTES = 65536;   // the warps' K/V rings together, at least
+constexpr int TABLE_MAX = 1024;     // table entries of one split
 constexpr float BIG_NEG = -2.3819763e38f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// Row padding in elements: 16-byte row reads by 8 neighbouring threads then
-// fall in distinct bank groups.
-template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int v = 4; };
-template <> struct Pad<__nv_bfloat16> { static constexpr int v = 8; };
-template <> struct Pad<int8_t> { static constexpr int v = 16; };
+// Dtype codes of the C interface: 0 f32, 1 bf16, 2 int8 (pools only).
+template <int C> struct DType;
+template <> struct DType<0> { using T = float; };
+template <> struct DType<1> { using T = __nv_bfloat16; };
+template <> struct DType<2> { using T = int8_t; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -74,30 +102,49 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+// N contiguous elements of T at p (aligned to their size: 8 bytes or a
+// multiple of 16), read as vectors and widened to f32.
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  static_assert(BYTES == 8 || BYTES % 16 == 0, "8 bytes or a multiple of 16");
+  if constexpr (BYTES >= 16) {
+    constexpr int PER = 16 / (int)sizeof(T);
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 w = reinterpret_cast<const uint4*>(p)[i];
+      const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+      for (int k = 0; k < PER; ++k) out[i * PER + k] = to_f32(e[k]);
+    }
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = to_f32(e[k]);
+  }
+}
+
+// Asynchronous copy of BYTES (8 or 16) global -> shared; zero-fills the
+// destination and reads nothing when !valid.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+                 "r"(n) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__host__ __device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 struct Args {
@@ -108,303 +155,404 @@ struct Args {
   const int32_t* kv_len;
   const int32_t* q_pos;
   void* out;
-  float* acc;
-  float* m;
+  float* acc;      // (n_split, B, Sq, H, D) partial states, n_split > 1
+  float* m;        // (n_split, B, Sq, H)
   float* l;
-  int B, Sq, H, KH, n_pool, bs, W, chunk, nk, n_splits, qt, causal, window;
-  float softcap, scale, int8_scale;
+  int* counters;   // one per (batch row, KV head, row tile), 0 between launches
+  int B, Sq, H, KH, n_pool, bs, bs_shift, W, n_pages, n_split, span, n_rt, causal,
+      window;
+  float softcap, scale, inv_int8_scale;
 };
 
-__host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
+// Warps of a block of RT rows: 8 of 2 rows, 4 of 8.
+template <int RT> struct Warps { static constexpr int v = RT == 2 ? 8 : 4; };
 
-// Bytes of shared memory of one block: Q, acc, the chunk's scores, m/l/corr
-// and the query positions in f32/int32, then one K and one V tile.
-template <typename KVT, int D>
-__host__ __device__ __forceinline__ size_t smem_bytes(int G, int qt, int chunk) {
-  const size_t rmax = (size_t)G * qt;
-  const size_t head = (2 * rmax * D + rmax * chunk + 3 * rmax + qt) * 4;
-  return align16(head) + 2 * (size_t)KT * (D + Pad<KVT>::v) * sizeof(KVT);
-}
-
-// Stage pool rows [pos0, pos0 + n) of KV head kh for one batch row's table.
-template <typename KVT, int D>
-__device__ __forceinline__ void load_tile(KVT* dst, const KVT* pool,
-                                          const int32_t* table, const Args& a,
-                                          int kh, int pos0, int n) {
-  constexpr int VEC = 16 / sizeof(KVT);
-  constexpr int PER_ROW = D / VEC;
-  constexpr int STRIDE = D + Pad<KVT>::v;
-  const int dump = a.n_pool - 1;
-  for (int i = threadIdx.x; i < n * PER_ROW; i += THREADS) {
-    const int row = i / PER_ROW, vec = i % PER_ROW;
-    const int p = pos0 + row;
-    const int lb = p / a.bs;
-    int blk = lb < a.W ? table[lb] : dump;      // the chunk grid's padding
-    blk = min(max(blk, 0), dump);               // never read outside the pool
-    const KVT* src = pool + ((size_t)(blk * a.bs + p % a.bs) * a.KH + kh) * D + vec * VEC;
-    cp_async16(dst + row * STRIDE + vec * VEC, src);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-}
-
-// Work split of the score and P.V passes by head dim. Scores: one thread per
-// KV position holds DP of its K row in registers at a time (two pieces at
-// D = 256). P.V: thread (row group, column) with DT columns per row group;
-// at D = 256 each thread owns two columns and a block at most 32 rows, so
-// its partial sums stay at 64 registers.
-template <int D> struct Split {
-  static constexpr int DP = D < 128 ? D : 128;
-  static constexpr int DT = D < THREADS ? D : THREADS;
-  static constexpr int NG2 = THREADS / DT;    // row groups of the P.V pass
-  static constexpr int DPT = D / DT;          // columns per thread
-  static constexpr int RM = D > THREADS ? RMAX / 2 : RMAX;   // rows per block
-  static constexpr int RPT = RM / NG2;        // rows per thread of the P.V pass
+// Shared memory of a block: NS stages of every warp's ring (RING_BYTES, or
+// two stages where those take more), then the split's table entries.
+template <typename KVT, int RT> struct Ring {
+  static constexpr int STAGE = 2 * NP * 32 * EL;   // K and V of a warp stage, elements
+  static constexpr int WARP_STAGE = STAGE * (int)sizeof(KVT);
+  static constexpr int NS = RING_BYTES / (Warps<RT>::v * WARP_STAGE) > 2
+                                ? RING_BYTES / (Warps<RT>::v * WARP_STAGE) : 2;
+  static constexpr int BYTES = NS * Warps<RT>::v * WARP_STAGE;
 };
 
-template <typename KVT>
-__device__ __forceinline__ float load_kv(KVT x, float int8_scale) {
-  if constexpr (std::is_same<KVT, int8_t>::value) return to_f32(x) / int8_scale;
-  else return to_f32(x);
-}
-
-template <typename QT, typename KVT, int D>
-__global__ void __launch_bounds__(THREADS) paged_attention_kernel(const Args a) {
-  constexpr int STRIDE = D + Pad<KVT>::v;
-  constexpr int VEC = 16 / sizeof(KVT);
-  constexpr int NG1 = THREADS / KT;   // row groups of the score pass
-  constexpr int DP = Split<D>::DP, DT = Split<D>::DT, NG2 = Split<D>::NG2;
-  constexpr int DPT = Split<D>::DPT, RPT = Split<D>::RPT;
+template <int QC, int KC, int D, int RT>
+__global__ void __launch_bounds__(32 * Warps<RT>::v, 2)
+    paged_attention_kernel(const Args a) {
+  using QT = typename DType<QC>::T;
+  using KVT = typename DType<KC>::T;
+  constexpr int WARPS = Warps<RT>::v, THREADS = 32 * WARPS;
+  constexpr int L = D / EL;                  // lanes per KV row
+  constexpr int PW = 32 / L;                 // lane groups per warp
+  constexpr int PS = PW * NP;                // positions per warp stage
+  constexpr int VEC = 16 / (int)sizeof(KVT) < EL ? 16 / (int)sizeof(KVT) : EL;
+  constexpr int CH = EL / VEC;               // contiguous chunks of a lane's 8
+  constexpr int CB = VEC * (int)sizeof(KVT); // bytes of a chunk: 16, or 8 (int8)
+  constexpr int STAGE = Ring<KVT, RT>::STAGE;   // K then V of a stage
+  constexpr int NS = Ring<KVT, RT>::NS;
+  static_assert(STAGE == 2 * PS * D, "a stage holds PS rows of K and of V");
+  static_assert(NS >= 2 && (NS & (NS - 1)) == 0, "ring of >= 2 stages");
+  static_assert(WARPS * RT * D * 4 + 2 * WARPS * RT * 4 <= RING_BYTES, "merge fits");
+  static_assert(2 * RT * SPLIT_MAX * 4 <= RING_BYTES, "split weights fit");
+  constexpr int RING = Ring<KVT, RT>::BYTES;
   extern __shared__ __align__(16) unsigned char smem[];
+  int* tab = reinterpret_cast<int*>(smem + RING);   // the split's pages
+  __shared__ int last_block;
 
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int li = lane % L, gi = lane / L;
+  const int split = blockIdx.x % a.n_split, rt = blockIdx.x / a.n_split;
+  const int kh = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KH;
-  const int rmax = G * a.qt;
-  const int q0 = blockIdx.x * a.qt;
-  const int nq = min(a.qt, a.Sq - q0);
-  const int R = G * nq;                          // rows r = qi * G + g
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z / a.n_splits;
-  const int split = blockIdx.z % a.n_splits;
-  const int tid = threadIdx.x;
-  const int C = a.chunk;
+  const int r0 = rt * RT;                    // rows r = qi * G + g
+  const int R = min(RT, a.Sq * G - r0);
 
-  float* Qs = reinterpret_cast<float*>(smem);   // [rmax][D]
-  float* Acc = Qs + rmax * D;                   // [rmax][D]
-  float* S = Acc + rmax * D;                    // [rmax][C]
-  float* Mr = S + (size_t)rmax * C;             // [rmax]
-  float* Lr = Mr + rmax;                        // [rmax]
-  float* Cr = Lr + rmax;                        // [rmax]
-  int* Qp = reinterpret_cast<int*>(Cr + rmax);  // [qt]
-  KVT* Ks = reinterpret_cast<KVT*>(
-      smem + align16((2 * (size_t)rmax * D + (size_t)rmax * C + 3 * rmax + a.qt) * 4));
-  KVT* Vs = Ks + KT * STRIDE;
-
-  const QT* q = static_cast<const QT*>(a.q);
-  for (int i = tid; i < R * D; i += THREADS) {
-    const int r = i / D, d = i % D, qi = r / G, g = r % G;
-    const float x = to_f32(q[(((size_t)b * a.Sq + q0 + qi) * a.H + kh * G + g) * D + d]);
-    Qs[i] = to_f32(from_f32<QT>(x * a.scale));   // scaled in the query dtype
-    Acc[i] = 0.f;
+  // 1. Everything the block reads first, all in flight at once.
+  const int kvl = a.kv_len[b];
+  int qp[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+    qp[r] = r < R ? a.q_pos[(size_t)b * a.Sq + (r0 + r) / G] : 0;
+  const int page0 = split * a.span;
+  const int npg = max(min(a.span, a.n_pages - page0), 0);
+  const int dump = a.n_pool - 1;
+  const int32_t* table = a.tables + (size_t)b * a.W;
+  int tv[TABLE_MAX / THREADS];               // the entries, stored after q is requested
+#pragma unroll
+  for (int i = 0; i < TABLE_MAX / THREADS; ++i) {
+    const int e = page0 + tid + i * THREADS;
+    tv[i] = tid + i * THREADS < npg && e < a.W ? table[e] : dump;   // the chunk grid's padding
   }
-  for (int r = tid; r < R; r += THREADS) {
-    Mr[r] = BIG_NEG;
-    Lr[r] = 0.f;
+  float q[RT][EL];
+  const QT* qg = static_cast<const QT*>(a.q);
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if (r < R) {
+      const int row = r0 + r;
+      const QT* src = qg + (((size_t)b * a.Sq + row / G) * a.H + kh * G + row % G) * D;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) load_vec<QT, VEC>(src + (c * L + li) * VEC, q[r] + c * VEC);
+#pragma unroll
+      for (int e = 0; e < EL; ++e) q[r][e] = to_f32(from_f32<QT>(q[r][e] * a.scale));
+    } else {
+#pragma unroll
+      for (int e = 0; e < EL; ++e) q[r][e] = 0.f;
+    }
   }
-  for (int i = tid; i < nq; i += THREADS) Qp[i] = a.q_pos[(size_t)b * a.Sq + q0 + i];
+#pragma unroll
+  for (int i = 0; i < TABLE_MAX / THREADS; ++i)
+    if (tid + i * THREADS < npg) tab[tid + i * THREADS] = min(max(tv[i], 0), dump);   // never outside the pool
   __syncthreads();
 
-  const int kvl = a.kv_len[b];
-  int maxq = INT_MIN;
-  for (int i = 0; i < nq; ++i) maxq = max(maxq, Qp[i]);
-  const int cps = (a.nk + a.n_splits - 1) / a.n_splits;
-  const int lo = split * cps;
-  int hi = min(lo + cps, a.nk);
-  hi = min(hi, kvl > 0 ? (kvl + C - 1) / C : 0);
-  if (a.causal) hi = min(hi, floor_div(maxq + C, C));
+  // 2. The block's live range: its split's pages, the live length, the
+  // causal frontier of its last row and the window of its first.
+  int maxq = INT_MIN, minq = INT_MAX;
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+    if (r < R) {
+      maxq = max(maxq, qp[r]);
+      minq = min(minq, qp[r]);
+    }
+  int lo = page0 * a.bs;
+  int hi = min((page0 + npg) * a.bs, kvl);
+  if (a.causal) {
+    hi = min(hi, maxq < INT_MAX ? maxq + 1 : maxq);
+    if (a.window > 0) lo = max(lo, minq - a.window + 1);
+  }
+  const int n = max(hi - lo, 0);
   const int win = a.window > 0 ? a.window : INT_MAX;
-  const int32_t* table = a.tables + (size_t)b * a.W;
+  const int nst = n > warp * PS ? (n - warp * PS + WARPS * PS - 1) / (WARPS * PS) : 0;
+
   const KVT* kpool = static_cast<const KVT*>(a.k);
   const KVT* vpool = static_cast<const KVT*>(a.v);
-  const int warp = tid / 32, lane = tid % 32;
+  KVT* ring = reinterpret_cast<KVT*>(smem) + (size_t)warp * NS * STAGE;
+  // Stage t of this warp: positions lo + (t * WARPS + warp) * PS + j * PW + gi.
+  auto issue = [&](int t) {
+    KVT* st = ring + (t % NS) * STAGE;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int p = lo + (t * WARPS + warp) * PS + j * PW + gi;
+      const bool ok = p < hi;
+      const int pc = ok ? p : lo;
+      const int pg = a.bs_shift >= 0 ? pc >> a.bs_shift : pc / a.bs;
+      const int blk = tab[pg - page0];
+      const size_t off = ((size_t)blk * a.bs + (pc - pg * a.bs)) * a.KH * D + (size_t)kh * D;
+      KVT* dk = st + (j * PW + gi) * D;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int d0 = (c * L + li) * VEC;
+        cp_async<CB>(dk + d0, kpool + off + d0, ok);
+        cp_async<CB>(dk + PS * D + d0, vpool + off + d0, ok);
+      }
+    }
+  };
 
-  for (int ci = lo; ci < hi; ++ci) {
-    const int base = ci * C;
-    // 1. the chunk's masked scores
-    for (int c0 = 0; c0 < C; c0 += KT) {
-      const int n = min(KT, C - c0);
-      const int pos0 = base + c0;
-      const bool live = pos0 < kvl && (!a.causal || pos0 <= maxq);
-      if (!live) {
-        for (int i = tid; i < R * n; i += THREADS) S[(i / n) * C + c0 + i % n] = BIG_NEG;
-        continue;
-      }
-      load_tile<KVT, D>(Ks, kpool, table, a, kh, pos0, n);
-      const int c = tid % KT;
-      if (c < n) {
-        const int kpos = pos0 + c;
+  float m[RT], l[RT], acc[RT][EL];
 #pragma unroll
-        for (int p0 = 0; p0 < D; p0 += DP) {   // one FMA chain over D, DP at a time
-          float kr[DP];
+  for (int r = 0; r < RT; ++r) {
+    m[r] = BIG_NEG;
+    l[r] = 0.f;
 #pragma unroll
-          for (int v = 0; v < DP / VEC; ++v) {
-            const uint4 w = reinterpret_cast<const uint4*>(Ks + c * STRIDE + p0)[v];
-            const KVT* e = reinterpret_cast<const KVT*>(&w);
-#pragma unroll
-            for (int i = 0; i < VEC; ++i) kr[v * VEC + i] = load_kv(e[i], a.int8_scale);
-          }
-          for (int r = tid / KT; r < R; r += NG1) {
-            const float* qr = Qs + r * D + p0;
-            float s = p0 == 0 ? 0.f : S[r * C + c0 + c];
-#pragma unroll
-            for (int d = 0; d < DP; ++d) s = fmaf(qr[d], kr[d], s);
-            if (p0 + DP < D) {          // a partial sum: this thread's own entry
-              S[r * C + c0 + c] = s;
-              continue;
-            }
-            if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
-            bool ok = kpos < kvl;
-            if (a.causal) {
-              const int delta = Qp[r / G] - kpos;
-              ok = ok && delta >= 0 && delta < win;
-            }
-            S[r * C + c0 + c] = ok ? s : BIG_NEG;
-          }
-        }
-      }
-      __syncthreads();   // the next tile overwrites Ks
-    }
-    __syncthreads();
-    // 2. online-softmax update over the whole chunk, one warp per row
-    for (int r = warp; r < R; r += WARPS) {
-      float* sr = S + (size_t)r * C;
-      float mx = BIG_NEG;
-      for (int c = lane; c < C; c += 32) mx = fmaxf(mx, sr[c]);
-      const float m_new = fmaxf(Mr[r], warp_max(mx));
-      float sum = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float p = expf(sr[c] - m_new);
-        sr[c] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(Mr[r] - m_new);
-        Lr[r] = Lr[r] * corr + sum;
-        Mr[r] = m_new;
-        Cr[r] = corr;
-      }
-    }
-    __syncthreads();
-    // 3. acc = acc * corr + P.V (masked tiles hold p = 0 for every live row)
-    const int dt = tid % DT, rg = tid / DT;
-    float pv[DPT][RPT];
-#pragma unroll
-    for (int e = 0; e < DPT; ++e)
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) pv[e][j] = 0.f;
-    for (int c0 = 0; c0 < C; c0 += KT) {
-      const int n = min(KT, C - c0);
-      const int pos0 = base + c0;
-      if (!(pos0 < kvl && (!a.causal || pos0 <= maxq))) continue;   // block-uniform
-      load_tile<KVT, D>(Vs, vpool, table, a, kh, pos0, n);
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int r = rg + j * NG2;
-        if (r < R) {
-          const float* pr = S + (size_t)r * C + c0;
-#pragma unroll
-          for (int e = 0; e < DPT; ++e) {
-            float s = pv[e][j];
-            for (int c = 0; c < n; ++c)
-              s = fmaf(pr[c], load_kv(Vs[c * STRIDE + dt + e * DT], a.int8_scale), s);
-            pv[e][j] = s;
-          }
-        }
-      }
-      __syncthreads();   // the next tile overwrites Vs
-    }
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = rg + j * NG2;
-      if (r < R) {
-#pragma unroll
-        for (int e = 0; e < DPT; ++e) {
-          const int d = dt + e * DT;
-          Acc[r * D + d] = Acc[r * D + d] * Cr[r] + pv[e][j];
-        }
-      }
-    }
-    __syncthreads();     // the next chunk rewrites S and Cr
+    for (int e = 0; e < EL; ++e) acc[r][e] = 0.f;
+  }
+#pragma unroll 1
+  for (int t = 0; t < NS; ++t) {
+    if (t < nst) issue(t);
+    cp_commit();
   }
 
-  if (a.n_splits == 1) {
-    QT* out = static_cast<QT*>(a.out);
-    for (int i = tid; i < R * D; i += THREADS) {
-      const int r = i / D, d = i % D, qi = r / G, g = r % G;
-      out[(((size_t)b * a.Sq + q0 + qi) * a.H + kh * G + g) * D + d] =
-          from_f32<QT>(Acc[i] / fmaxf(Lr[r], 1e-30f));
+  // 3. The warp's stages: scores, online softmax per lane group, P.V.
+#pragma unroll 1
+  for (int t = 0; t < nst; ++t) {
+    cp_wait<NS - 1>();                      // this lane's copies of stage t
+    const KVT* st = ring + (t % NS) * STAGE;
+    const int pbase = lo + (t * WARPS + warp) * PS + gi;
+    float s[NP][RT];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      float kf[EL];
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        load_vec<KVT, VEC>(st + (j * PW + gi) * D + (c * L + li) * VEC, kf + c * VEC);
+      if constexpr (std::is_same<KVT, int8_t>::value) {
+#pragma unroll
+        for (int e = 0; e < EL; ++e) kf[e] *= a.inv_int8_scale;   // exact: a power of two
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        float x = 0.f;
+#pragma unroll
+        for (int e = 0; e < EL; ++e) x = fmaf(q[r][e], kf[e], x);
+        s[j][r] = x;
+      }
     }
-  } else {
-    const size_t row0 = ((size_t)split * a.B + b) * a.Sq + q0;   // (n_splits, B, Sq, H, ...)
-    for (int i = tid; i < R * D; i += THREADS) {
-      const int r = i / D, d = i % D, qi = r / G, g = r % G;
-      a.acc[((row0 + qi) * a.H + kh * G + g) * D + d] = Acc[i];
+    // Every row, live or not (rows past R hold q = 0 and are never stored),
+    // and the shuffle rounds outermost: the (position, row) chains interleave.
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+#pragma unroll
+        for (int r = 0; r < RT; ++r) s[j][r] += __shfl_xor_sync(FULL, s[j][r], o);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float mx = m[r];
+      bool ok[NP];
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        float x = s[j][r];
+        if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+        const int p = pbase + j * PW, delta = qp[r] - p;
+        ok[j] = p < hi && (!a.causal || (delta >= 0 && delta < win));
+        s[j][r] = x;
+        if (ok[j]) mx = fmaxf(mx, x);
+      }
+      const float corr = __expf(m[r] - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        s[j][r] = ok[j] ? __expf(s[j][r] - mx) : 0.f;
+        sum += s[j][r];
+      }
+      m[r] = mx;
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int e = 0; e < EL; ++e) acc[r][e] *= corr;
     }
-    for (int r = tid; r < R; r += THREADS) {
-      const size_t at = (row0 + r / G) * a.H + kh * G + r % G;
-      a.m[at] = Mr[r];
-      a.l[at] = Lr[r];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      float vf[EL];
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        load_vec<KVT, VEC>(st + PS * D + (j * PW + gi) * D + (c * L + li) * VEC, vf + c * VEC);
+      if constexpr (std::is_same<KVT, int8_t>::value) {
+#pragma unroll
+        for (int e = 0; e < EL; ++e) vf[e] *= a.inv_int8_scale;
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+#pragma unroll
+        for (int e = 0; e < EL; ++e) acc[r][e] = fmaf(s[j][r], vf[e], acc[r][e]);
+      }
     }
+    if (t + NS < nst) issue(t + NS);        // into the slot just read
+    cp_commit();
+  }
+  cp_wait<0>();
+
+  // 4. Merge the warp's lane groups (log-sum-exp, by shuffles).
+#pragma unroll
+  for (int o = L; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const float mo = __shfl_xor_sync(FULL, m[r], o);
+      const float lo2 = __shfl_xor_sync(FULL, l[r], o);
+      const float mn = fmaxf(m[r], mo);
+      const float c1 = __expf(m[r] - mn), c2 = __expf(mo - mn);
+      l[r] = l[r] * c1 + lo2 * c2;
+#pragma unroll
+      for (int e = 0; e < EL; ++e) {
+        const float ao = __shfl_xor_sync(FULL, acc[r][e], o);
+        acc[r][e] = acc[r][e] * c1 + ao * c2;
+      }
+      m[r] = mn;
+    }
+  }
+
+  // 5. Merge the warps once, through shared memory (the rings are done).
+  __syncthreads();
+  float* wacc = reinterpret_cast<float*>(smem);   // [WARPS][RT][D]
+  float* wm = wacc + WARPS * RT * D;              // [WARPS][RT]
+  float* wl = wm + WARPS * RT;
+  if (gi == 0) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      if (r < R) {
+        float* dst = wacc + (warp * RT + r) * D;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) dst[(c * L + li) * VEC + e] = acc[r][c * VEC + e];
+        }
+        if (li == 0) {
+          wm[warp * RT + r] = m[r];
+          wl[warp * RT + r] = l[r];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  QT* out = static_cast<QT*>(a.out);
+  const size_t prow = ((size_t)split * a.B + b) * a.Sq;   // (n_split, B, Sq, H, ...)
+  for (int i = tid; i < R * D; i += THREADS) {
+    const int r = i / D, d = i % D, row = r0 + r;
+    float mx = BIG_NEG;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w * RT + r]);
+    float ls = 0.f, as = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float c = __expf(wm[w * RT + r] - mx);
+      ls += wl[w * RT + r] * c;
+      as += wacc[(w * RT + r) * D + d] * c;
+    }
+    const size_t h = (size_t)kh * G + row % G;
+    if (a.n_split == 1) {
+      out[(((size_t)b * a.Sq + row / G) * a.H + h) * D + d] = from_f32<QT>(as / fmaxf(ls, 1e-30f));
+    } else {
+      const size_t at = (prow + row / G) * a.H + h;
+      a.acc[at * D + d] = as;                      // 0 where no position was live
+      if (d == 0) {
+        a.m[at] = mx;
+        a.l[at] = ls;
+      }
+    }
+  }
+  if (a.n_split == 1) return;
+
+  // 6. The last split of this tile to finish merges every split's state:
+  // every (m, l) at once into shared memory, then each output element's
+  // acc of every split, all loads in flight together.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = a.counters + ((size_t)b * a.KH + kh) * a.n_rt + rt;
+    const int done = atomicAdd(cnt, 1);
+    last_block = done == a.n_split - 1;
+    if (last_block) *cnt = 0;               // ready for the next launch
+  }
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  const int ns = a.n_split;
+  float* sw = reinterpret_cast<float*>(smem);    // [RT][ns] weights
+  float* sl = sw + RT * ns;                      // [RT][ns] l, then [RT] sums
+  const size_t stride = (size_t)a.B * a.Sq * a.H;   // one split's rows
+  for (int i = tid; i < R * ns; i += THREADS) {
+    const int r = i / ns, sp = i % ns, row = r0 + r;
+    const size_t at = sp * stride + ((size_t)b * a.Sq + row / G) * a.H + kh * G + row % G;
+    sw[i] = __ldcg(a.m + at);
+    sl[i] = __ldcg(a.l + at);
+  }
+  __syncthreads();
+  if (tid < R) {
+    float mx = BIG_NEG, ls = 0.f;
+    for (int sp = 0; sp < ns; ++sp) mx = fmaxf(mx, sw[tid * ns + sp]);
+    for (int sp = 0; sp < ns; ++sp) {
+      const float lp = sl[tid * ns + sp];
+      const float c = lp > 0.f ? __expf(sw[tid * ns + sp] - mx) : 0.f;
+      sw[tid * ns + sp] = c;
+      ls += lp * c;
+    }
+    sl[tid * ns] = ls;                           // l of every split merged
+  }
+  __syncthreads();
+  for (int i = tid; i < R * D; i += THREADS) {
+    const int r = i / D, d = i % D, row = r0 + r;
+    const size_t at = ((size_t)b * a.Sq + row / G) * a.H + kh * G + row % G;
+    float as = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < ns; ++sp)
+      as = fmaf(sw[r * ns + sp], __ldcg(a.acc + (sp * stride + at) * D + d), as);
+    out[at * D + d] = from_f32<QT>(as / fmaxf(sl[r * ns], 1e-30f));
   }
 }
 
-template <typename QT, typename KVT, int D>
-cudaError_t launch(Args a, cudaStream_t stream) {
-  const int G = a.H / a.KH;
-  // query positions per block: as many as the row cap and shared memory allow
-  int qt = min(a.Sq, Split<D>::RM / G);
-  while (qt > 1 && smem_bytes<KVT, D>(G, qt, a.chunk) > (size_t)SMEM_LIMIT) --qt;
-  if (qt < 1 || smem_bytes<KVT, D>(G, qt, a.chunk) > (size_t)SMEM_LIMIT)
-    return cudaErrorInvalidValue;
-  a.qt = qt;
-  const int smem = (int)smem_bytes<KVT, D>(G, qt, a.chunk);
-  auto kernel = paged_attention_kernel<QT, KVT, D>;
+template <int QC, int KC, int D, int RT>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr int THREADS = 32 * Warps<RT>::v;
+  constexpr int RING = Ring<typename DType<KC>::T, RT>::BYTES;
+  constexpr int SMEM = RING + TABLE_MAX * 4;
+  auto kernel = paged_attention_kernel<QC, KC, D, RT>;
   // The shared-memory limit is an attribute of the kernel on each device:
-  // raise it once per instantiation and device, to the largest size asked
-  // for so far, not on every launch.
-  static int smem_set[64] = {0};
+  // raise it once per instantiation and device, not on every launch.
+  static bool smem_set[64] = {false};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return err;
-    smem_set[dev] = smem;
+    smem_set[dev] = true;
   }
-  const dim3 grid((a.Sq + qt - 1) / qt, a.KH, a.B * a.n_splits);
+  const int smem = RING + ((a.span * 4 + 15) & ~15);
+  const dim3 grid(a.n_rt * a.n_split, a.KH, a.B);
   kernel<<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename QT, typename KVT>
-cudaError_t dispatch_d(const Args& a, int D, cudaStream_t s) {
+// Rows per block: 2 for bf16 q where the grid still fits the card (every
+// served model's decode and prefill chunks), 8 for everything else.
+template <int QC, int KC, int D>
+cudaError_t dispatch_rt(const Args& a, int rt, cudaStream_t s) {
+  if constexpr (QC == 1) {
+    if (rt == 2) return launch<QC, KC, D, 2>(a, s);
+  }
+  if (rt == RT_MAX) return launch<QC, KC, D, RT_MAX>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+template <int QC, int KC>
+cudaError_t dispatch_d(const Args& a, int D, int rt, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<QT, KVT, 16>(a, s);
-    case 32: return launch<QT, KVT, 32>(a, s);
-    case 64: return launch<QT, KVT, 64>(a, s);
-    case 128: return launch<QT, KVT, 128>(a, s);
-    case 256: return launch<QT, KVT, 256>(a, s);
+    case 16: return dispatch_rt<QC, KC, 16>(a, rt, s);
+    case 32: return dispatch_rt<QC, KC, 32>(a, rt, s);
+    case 64: return dispatch_rt<QC, KC, 64>(a, rt, s);
+    case 128: return dispatch_rt<QC, KC, 128>(a, rt, s);
+    case 256: return dispatch_rt<QC, KC, 256>(a, rt, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename QT>
-cudaError_t dispatch_kv(const Args& a, int D, int kv_dtype, cudaStream_t s) {
+template <int QC>
+cudaError_t dispatch_kv(const Args& a, int D, int kv_dtype, int rt, cudaStream_t s) {
   switch (kv_dtype) {
-    case 0: return dispatch_d<QT, float>(a, D, s);
-    case 1: return dispatch_d<QT, __nv_bfloat16>(a, D, s);
-    case 2: return dispatch_d<QT, int8_t>(a, D, s);
+    case 0: return dispatch_d<QC, 0>(a, D, rt, s);
+    case 1: return dispatch_d<QC, 1>(a, D, rt, s);
+    case 2: return dispatch_d<QC, 2>(a, D, rt, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -413,21 +561,31 @@ cudaError_t dispatch_kv(const Args& a, int D, int kv_dtype, cudaStream_t s) {
 
 // Returns a cudaError_t value (0 on success). q (B,Sq,H,D), the pools
 // (n_pool,bs,KH,D), tables (B,W), kv_len (B,) and q_pos (B,Sq) are
-// contiguous; the pools 16-byte aligned. n_splits == 1 writes `out`
-// (B,Sq,H,D) in q's dtype; n_splits > 1 writes `acc` (n_splits,B,Sq,H,D),
-// `m` and `l` (n_splits,B,Sq,H) in f32. Dtype codes: 0 f32, 1 bf16, 2 int8
-// (pools only). `chunk` must be a multiple of bs; n_splits <= the chunk count.
+// contiguous; q and the pools 16-byte aligned. Positions [0, n_pages * bs)
+// are scanned (the reference's chunk grid; table entries past W read the dump
+// row), split into n_split runs of ceil(n_pages / n_split) pages, at most
+// TABLE_MAX. n_split == 1 writes `out` (B,Sq,H,D) in q's dtype directly;
+// n_split > 1 also takes f32 scratch `acc` (n_split,B,Sq,H,D), `m` and `l`
+// (n_split,B,Sq,H) and `counters`, B*KH*ceil(Sq*H/KH / rt) int32 that are
+// 0 and are left 0. rt is the rows per block: 8, or 2 with bf16 q;
+// n_split is at most SPLIT_MAX.
+// Dtype codes: 0 f32, 1 bf16, 2 int8 (pools only); int8_scale is a power
+// of two.
 extern "C" int paged_attention(const void* q, const void* k, const void* v,
                                const void* tables, const void* kv_len,
                                const void* q_pos, void* out, void* acc, void* m,
-                               void* l, int B, int Sq, int H, int KH, int D,
-                               int n_pool, int bs, int W, int chunk,
-                               int n_splits, int causal, int window,
-                               int q_dtype, int kv_dtype, float softcap,
-                               float scale, float int8_scale, void* stream) {
+                               void* l, void* counters, int B, int Sq, int H,
+                               int KH, int D, int n_pool, int bs, int W,
+                               int n_pages, int n_split, int rt, int causal,
+                               int window, int q_dtype, int kv_dtype,
+                               float softcap, float scale, float int8_scale,
+                               void* stream) {
+  int exp2 = 0;
   if (B <= 0 || Sq <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || n_pool <= 0 ||
-      bs <= 0 || W <= 0 || chunk <= 0 || chunk % bs != 0 || n_splits < 1 ||
-      (uintptr_t)k % 16 != 0 || (uintptr_t)v % 16 != 0)
+      bs <= 0 || W <= 0 || n_pages <= 0 || n_split < 1 || n_split > n_pages ||
+      (uintptr_t)q % 16 != 0 || (uintptr_t)k % 16 != 0 || (uintptr_t)v % 16 != 0 ||
+      frexpf(int8_scale, &exp2) != 0.5f || B > 65535 || KH > 65535 ||
+      (rt != 2 && rt != RT_MAX) || n_split > SPLIT_MAX)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -440,27 +598,31 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v,
   a.acc = static_cast<float*>(acc);
   a.m = static_cast<float*>(m);
   a.l = static_cast<float*>(l);
+  a.counters = static_cast<int*>(counters);
   a.B = B;
   a.Sq = Sq;
   a.H = H;
   a.KH = KH;
   a.n_pool = n_pool;
   a.bs = bs;
+  a.bs_shift = (bs & (bs - 1)) == 0 ? __builtin_ctz(bs) : -1;
   a.W = W;
-  a.chunk = chunk;
-  a.nk = (W * bs + chunk - 1) / chunk;
-  a.n_splits = n_splits;
-  a.qt = 0;
+  a.n_pages = n_pages;
+  a.n_split = n_split;
+  a.span = (n_pages + n_split - 1) / n_split;
+  a.n_rt = (Sq * (H / KH) + rt - 1) / rt;
   a.causal = causal;
   a.window = window;
   a.softcap = softcap;
   a.scale = scale;
-  a.int8_scale = int8_scale;
-  if (n_splits > a.nk) return (int)cudaErrorInvalidValue;
+  a.inv_int8_scale = 1.f / int8_scale;
+  if (a.span > TABLE_MAX || (long long)a.n_rt * n_split > INT_MAX ||
+      (n_split > 1 && (!acc || !m || !l || !counters)))
+    return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
-    case 0: return (int)dispatch_kv<float>(a, D, kv_dtype, s);
-    case 1: return (int)dispatch_kv<__nv_bfloat16>(a, D, kv_dtype, s);
+    case 0: return (int)dispatch_kv<0>(a, D, kv_dtype, rt, s);
+    case 1: return (int)dispatch_kv<1>(a, D, kv_dtype, rt, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

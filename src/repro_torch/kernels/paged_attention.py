@@ -7,12 +7,14 @@ written to device memory and each row's scan stops at its live length. On the
 H100 it is bound by the live KV bytes; the source note in
 ``csrc/paged_attention.cu`` gives the design.
 
-``n_splits == 1`` is the sequential scan; ``n_splits > 1`` splits the KV
-chunk range over thread blocks, each writing a partial ``(acc, m, l)``, and
-merges them here with the log-sum-exp combine (as the reference does outside
-its kernel). The plain version (``ref.paged_attention_ref``) is the
-block-table gather path of ``models.layers.chunked_attention``; the two agree
-within float rounding (they sum in different orders).
+One call is one launch. The kernel splits each row's table pages over
+thread blocks when the grid is short (``geometry``: from the table's width
+and the SM count, the caller's ``n_splits`` a floor), and the last block of
+each split tile merges the partial states by log-sum-exp inside the launch;
+the wrapper runs no arithmetic after it. The plain version
+(``ref.paged_attention_ref``) is the block-table gather path of
+``models.layers.chunked_attention``; the two agree within float rounding
+(they sum in different orders).
 
 ``launches`` counts the kernel's launches; it changes only where the kernel
 is launched.
@@ -32,16 +34,66 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 launches = 0
+# The kernel's geometry (as in csrc/paged_attention.cu): warps per block by
+# rows per block, elements of a KV row per lane, positions per lane group
+# per stage, table pages per split, splits of a row tile at most, blocks
+# resident on an SM, dynamic shared memory at most.
+WARPS = {2: 8, 8: 4}
+LANE_ELEMENTS = 8
+STAGE_POSITIONS = 2
+TABLE_MAX = 1024
+SPLIT_MAX = 256
+BLOCKS_PER_SM = 2
+SMEM_BYTES = 65536 + 4 * TABLE_MAX
+# The kernel splits a row on its own only where each split keeps at least
+# this many positions.
+SPLIT_MIN_POSITIONS = 128
+_counters = {}
 
 
 @functools.cache
 def _lib():
     lib = _build.load(NAME)
     fn = lib.paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 15
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return _build.sm_count(torch.device("cuda", index))
+
+
+def geometry(b: int, rows: int, kh: int, n_pages: int, block_size: int,
+             n_splits: int, sms: int, q_dtype=torch.bfloat16):
+    """(rows per block, splits) of a launch. ``rows`` is Sq x H / KH, the
+    rows of one (batch row, KV head). A block takes 2 of them (bf16 q,
+    where the grid of 2-row tiles fits the blocks resident on ``sms`` SMs)
+    or 8. Each row tile splits its ``n_pages`` table pages over at least
+    ``n_splits`` blocks, enough that a split holds at most ``TABLE_MAX``
+    pages, and as many as keep the grid within the resident blocks, each
+    split keeping ``SPLIT_MIN_POSITIONS`` positions; ``SPLIT_MAX`` at
+    most."""
+    resident = BLOCKS_PER_SM * sms
+    rt = 2 if (q_dtype == torch.bfloat16
+               and (rows <= 2 or b * kh * -(-rows // 2) <= resident)) else 8
+    tiles = b * kh * -(-rows // rt)
+    n = max(n_splits, -(-n_pages // TABLE_MAX),
+            min(resident // tiles, n_pages * block_size // SPLIT_MIN_POSITIONS))
+    return rt, min(n, n_pages, SPLIT_MAX)
+
+
+def _counters_for(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed int32 counters of the in-kernel split merge, one per tile,
+    kept per device and stream: every launch leaves them at 0."""
+    key = (dev.index, stream)
+    have = _counters.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _counters[key] = have
+    return have
 
 
 def _check(q, k_pool, v_pool, block_tables):
@@ -106,41 +158,40 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"the KV block size {bs}")
     chunk = min(chunk, width * bs)
     nk = -(-width * bs // chunk)
-    n_splits = max(1, min(int(n_splits), nk))
+    n_pages = nk * chunk // bs                 # the reference's chunk grid
     dev = q.device
+    if q.data_ptr() % 16:
+        q = q.clone()                          # the kernel reads q in 16 bytes
+    rt, n_split = geometry(b, sq * (h // kh), kh, n_pages, bs,
+                           max(1, min(int(n_splits), nk)), _sms(dev.index),
+                           q.dtype)
     tables = block_tables.to(torch.int32).contiguous()
     kvl = torch.as_tensor(kv_valid_len, device=dev).to(torch.int32)
     kvl = kvl.reshape(-1).expand(b).contiguous()
     qpos = torch.as_tensor(q_positions, device=dev).to(torch.int32)
     qpos = (qpos[None] if qpos.dim() == 1 else qpos).expand(b, sq).contiguous()
-    if n_splits == 1:
-        out = torch.empty_like(q)
-        parts = (None, None, None)
-    else:
-        parts = (torch.empty((n_splits, b, sq, h, d), dtype=torch.float32,
-                             device=dev),
-                 torch.empty((n_splits, b, sq, h), dtype=torch.float32,
-                             device=dev),
-                 torch.empty((n_splits, b, sq, h), dtype=torch.float32,
-                             device=dev))
-        out = None
+    out = torch.empty_like(q)
     fn = _lib()
-    ptr = lambda t: None if t is None else t.data_ptr()       # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        parts = [None] * 4
+        if n_split > 1:
+            parts = [torch.empty((n_split, b, sq, h, d), dtype=torch.float32,
+                                 device=dev),
+                     torch.empty((n_split, b, sq, h), dtype=torch.float32,
+                                 device=dev),
+                     torch.empty((n_split, b, sq, h), dtype=torch.float32,
+                                 device=dev),
+                     _counters_for(dev, stream,
+                                   b * kh * -(-sq * (h // kh) // rt))]
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  tables.data_ptr(), kvl.data_ptr(), qpos.data_ptr(),
-                 ptr(out), *map(ptr, parts), b, sq, h, kh, d, n_pool, bs,
-                 width, chunk, n_splits, int(causal), int(window),
-                 Q_DTYPES[q.dtype], KV_DTYPES[k_pool.dtype], float(softcap),
-                 d ** -0.5, CACHE_INT8_SCALE, stream)
+                 out.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in parts),
+                 b, sq, h, kh, d, n_pool, bs, width, n_pages, n_split, rt,
+                 int(causal), int(window), Q_DTYPES[q.dtype],
+                 KV_DTYPES[k_pool.dtype], float(softcap), d ** -0.5,
+                 CACHE_INT8_SCALE, stream)
     launches += 1
     _build.check(NAME, err)
-    if n_splits == 1:
-        return out
-    acc, m, l = parts                      # log-sum-exp combine of the splits
-    m_tot = m.amax(dim=0)
-    w = torch.exp(m - m_tot)
-    l_tot = (l * w).sum(dim=0)
-    acc_tot = (acc * w[..., None]).sum(dim=0)
-    return (acc_tot / torch.clamp_min(l_tot, 1e-30)[..., None]).to(q.dtype)
+    return out

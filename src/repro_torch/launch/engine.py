@@ -36,7 +36,7 @@ device (positions, counters, sampling parameters) lives on the host here;
 each step uploads one packed (B, T + 2) integer block (tokens, positions,
 q_len), the block tables when they changed, and syncs the sampled tokens
 once. On a CUDA device every paged-attention read goes through the
-paged-attention kernel (``paged_kernel`` is its split count, at least 1);
+paged-attention kernel (``paged_kernel`` is a floor on its split count);
 on the CPU the kernel's wrapper runs its plain version (the gather path).
 
 Not ported yet, raising ``NotImplementedError``: the contiguous engine
@@ -119,8 +119,9 @@ class ServeEngine:
     ``block_size`` tokens per block, ``n_blocks`` pool blocks (default: every
     slot can hold ``max_len`` tokens, ``max_slots * ceil(max_len /
     block_size)``), ``prefill_chunk`` prompt tokens per slot per step.
-    ``paged_kernel``: the paged-attention kernel's split count (None, 0 or 1
-    = the sequential scan; N > 1 = split-KV flash decoding). ``prefix_cache``
+    ``paged_kernel``: a floor on the paged-attention kernel's split count
+    (None, 0 or 1 = let the kernel choose; N > 1 = at least N blocks per
+    row's KV range). ``prefix_cache``
     shares full KV blocks across requests with equal prompt prefixes.
     The cache lives on the device of ``params["embed"]``.
     """

@@ -12,7 +12,7 @@ CLI (port of ``repro/launch/serve.py``).
   ``{"arrival": 3, "prompt_len": 12, "gen_len": 16, "temperature": 0.7}``;
   missing lengths fall back to --prompt-len/--gen-len). On a card every
   attention read goes through the paged-attention kernel
-  (``--paged-kernel N``: its split count; 0 or 1 = the sequential scan).
+  (``--paged-kernel N``: a floor on its split count; 0 or 1 = its own).
   ``--contiguous`` and ``--multi-step N > 1`` are not ported yet and exit
   with a message.
 
@@ -173,9 +173,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine: prompt tokens per slot per chunked-prefill "
                          "step")
     ap.add_argument("--paged-kernel", type=int, default=0, metavar="N",
-                    help="engine: split count of the paged-attention kernel "
-                         "(0 or 1 = sequential KV scan, N > 1 = split-KV "
-                         "flash decoding); CPU runs take its plain version")
+                    help="engine: floor on the paged-attention kernel's "
+                         "split count (0 or 1 = the kernel's own choice, "
+                         "N > 1 = at least N blocks per row's KV range); CPU "
+                         "runs take its plain version")
     ap.add_argument("--prefix-cache", dest="prefix_cache",
                     action="store_true", default=True,
                     help="engine: share KV blocks across requests with equal "

@@ -91,8 +91,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``paged_kernel`` (paged pools only): truthy sends the read to the
     paged-attention kernel (``kernels.paged_attention``), which walks the
-    table itself; the integer is its split count (1 = sequential scan,
-    > 1 = split-KV with a log-sum-exp combine). On CPU tensors the kernel's
+    table itself; the integer is a floor on the blocks each row's KV range
+    is split over (the kernel splits long rows further on its own and
+    merges the splits inside the launch). On CPU tensors the kernel's
     wrapper runs this gather path.
     """
     if block_tables is not None and paged_kernel:

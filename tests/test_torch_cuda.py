@@ -243,12 +243,22 @@ PAGED = [(1, 15, 5, 64, 8, 8, [0, 13, 40, 64], 1024, 0, 0.0),
          # gemma3-12b's engine: 16/8 heads at head dim 256
          (1, 16, 8, 256, 8, 8, [0, 13, 40, 64], 1024, 0, 0.0),
          (8, 16, 8, 256, 8, 8, [8, 0, 41, 64], 1024, 0, 0.0),
-         (8, 16, 8, 256, 8, 32, [9, 150, 0, 256], 64, 24, 0.0)]
+         (8, 16, 8, 256, 8, 32, [9, 150, 0, 256], 64, 24, 0.0),
+         # the engine's decode rows, every row live, at both served head dims
+         (1, 15, 5, 64, 8, 8, [17, 33, 49, 64], 1024, 0, 0.0),
+         (1, 16, 8, 256, 8, 8, [17, 33, 49, 64], 1024, 0, 0.0),
+         # 4096-position decode rows: the kernel splits them on its own
+         (1, 15, 5, 64, 8, 512, [4096] * 4, 1024, 0, 0.0),
+         (1, 16, 8, 256, 8, 512, [4096] * 4, 1024, 0, 0.0),
+         # rows whose live range is shorter than one split (and one empty)
+         (1, 15, 5, 64, 8, 512, [4096, 5, 0, 300], 1024, 0, 0.0)]
 
 
 @pytest.mark.parametrize("case", PAGED)
 def test_paged_attention_matches_plain(device, case):
-    """f32, bf16 and int8 pools (q in f32, bf16, bf16), n_splits 1 and 3."""
+    """f32, bf16 and int8 pools (q in f32, bf16, bf16), n_splits 1 and 3
+    (a floor: the kernel splits long rows further on its own, and merges the
+    splits inside the one launch)."""
     for q_dtype, kv_dtype in ((torch.float32, torch.float32),
                               (torch.bfloat16, torch.bfloat16),
                               (torch.bfloat16, torch.int8)):
@@ -270,6 +280,8 @@ def _check_paged_case(device, case, q_dtype, kv_dtype):
             chunk=chunk, n_splits=n_splits)
         torch.cuda.synchronize()
         assert paged_attention.launches == before + 1
+        # the in-kernel split merge leaves its counters at 0
+        assert not any(c.any() for c in paged_attention._counters.values())
         assert got.shape == q.shape and got.dtype == q.dtype
         assert not got[~live].any()          # kv_valid_len == 0: zeros
         err = (got.float() - want)[live].abs()
