@@ -16,7 +16,9 @@ row, which the kernel never reads for a live position.
 
 Held against ``ref.paged_attention_ref`` (the gather path) within one bf16
 ulp plus 1e-4 (``chip_smoke.py``'s gate: both round an f32 result to bf16
-once, after sums in another order), rows with kv_valid_len == 0 zero. The
+once, after sums in another order), or 1e-5 of |x| plus 1e-6 for f32 q,
+rows with kv_valid_len == 0 zero; at every head dim, operand type and mask
+path, and on the grid the wrapper picks for cards of 1 to 132 SMs. The
 control drops the ``exp(m_i - m)`` rescale from the merges, and the gate
 must fail it. No JAX: the plain version is the port's own.
 """
@@ -29,6 +31,7 @@ from repro_torch.kernels.ref import paged_attention_ref
 from repro_torch.models.layers import BIG_NEG, cache_load
 
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+F32_RTOL, F32_ATOL = 1e-5, 1e-6
 SMS = 132                                   # the H100's SMs
 
 
@@ -41,11 +44,12 @@ def _merge(m1, l1, a1, m2, l2, a2, rescale):
 
 
 def _emulate(q, k_pool, v_pool, tables, kvl, qpos, *, causal=True, window=0,
-             softcap=0.0, chunk=1024, n_splits=1, rescale=True):
-    """What the kernel computes, in its order, on CPU tensors; returns
-    (out in q's dtype, the split count it took). Every block of the grid at
-    once: a block runs as many stages as the longest, and positions past its
-    range leave its state as it was, as the stages it never runs do."""
+             softcap=0.0, chunk=1024, n_splits=1, rescale=True, sms=SMS):
+    """What the kernel computes, in its order, on CPU tensors, on a card of
+    ``sms`` SMs; returns (out in q's dtype, (rows per block, the split count
+    it took)). Every block of the grid at once: a block runs as many stages
+    as the longest, and positions past its range leave its state as it was,
+    as the stages it never runs do."""
     b, sq, h, d = q.shape
     _, bs, kh, _ = k_pool.shape
     g, width = h // kh, tables.shape[1]
@@ -53,7 +57,7 @@ def _emulate(q, k_pool, v_pool, tables, kvl, qpos, *, causal=True, window=0,
     nk = -(-width * bs // chunk)
     n_pages = nk * chunk // bs
     rb, n_split = pa.geometry(b, sq * g, kh, n_pages, bs,
-                              max(1, min(n_splits, nk)), SMS, q.dtype)
+                              max(1, min(n_splits, nk)), sms, q.dtype)
     span = -(-n_pages // n_split)
     nw, npos = pa.WARPS[rb], pa.STAGE_POSITIONS
     pw = 32 // (d // pa.LANE_ELEMENTS)       # lane groups of a warp
@@ -144,11 +148,12 @@ def _emulate(q, k_pool, v_pool, tables, kvl, qpos, *, causal=True, window=0,
         k = i * n_split
         r = rows[k][r_ok[k]]
         out[bi_t[k], r // g, kv_t[k] * g + r % g] = res[i][r_ok[k]]
-    return out.to(q.dtype), n_split
+    return out.to(q.dtype), (rb, n_split)
 
 
-def _inputs(seed, *, b, sq, h, kh, d, bs, width, kvl, kv_dtype):
-    """bf16 q; pools in kv_dtype (int8 payloads at scale 32); a permuted
+def _inputs(seed, *, b, sq, h, kh, d, bs, width, kvl, kv_dtype,
+            q_dtype=torch.bfloat16):
+    """q in q_dtype; pools in kv_dtype (int8 payloads at scale 32); a permuted
     table per row with the dump index past its live blocks; query positions
     ending at each row's live length."""
     rng = np.random.default_rng(seed)
@@ -166,7 +171,7 @@ def _inputs(seed, *, b, sq, h, kh, d, bs, width, kvl, kv_dtype):
                          perm, n_blocks).to(torch.int32)
     qpos = torch.clamp_min(kvl_t[:, None] - sq + torch.arange(sq)[None, :],
                            0).to(torch.int32)
-    return (q.to(torch.bfloat16), k.to(kv_dtype), v.to(kv_dtype), tables,
+    return (q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype), tables,
             kvl_t, qpos)
 
 
@@ -188,11 +193,18 @@ CASES = [(16, torch.bfloat16, 0, 0.0), (64, torch.bfloat16, 0, 0.0),
 KVL = [0, 37, 200, 256]
 
 
-def _gate(got, want, kvl):
+def _gate(got, want, kvl, rtol=BF16_RTOL, atol=BF16_ATOL):
     live = kvl > 0
     err = (got.float() - want.float())[live].abs()
-    ok = bool((err <= BF16_RTOL * want.float()[live].abs() + BF16_ATOL).all())
+    ok = bool((err <= rtol * want.float()[live].abs() + atol).all())
     return ok, float(err.max())
+
+
+def _tol(q_dtype):
+    """One bf16 ulp plus 1e-4 for a bf16 result; for f32, where nothing is
+    rounded but the sums' order differs, 1e-5 of |x| plus 1e-6."""
+    return ((BF16_RTOL, BF16_ATOL) if q_dtype == torch.bfloat16
+            else (F32_RTOL, F32_ATOL))
 
 
 @pytest.mark.parametrize("d,kv_dtype,window,softcap", CASES)
@@ -206,9 +218,9 @@ def test_paged_kernel_emulation_within_one_bf16_ulp(d, kv_dtype, window,
         want = paged_attention_ref(q, k, v, tables, kvl, qpos, **kw)
         splits = set()
         for n_splits in (1, 3):
-            got, n_split = _emulate(q, _with_nan_dump(k), _with_nan_dump(v),
-                                    tables, kvl, qpos, n_splits=n_splits,
-                                    **kw)
+            got, (_, n_split) = _emulate(q, _with_nan_dump(k),
+                                         _with_nan_dump(v), tables, kvl, qpos,
+                                         n_splits=n_splits, **kw)
             splits.add(n_split)
             ok, worst = _gate(got, want, kvl)
             assert ok, (sq, n_splits, worst)
@@ -227,6 +239,64 @@ def test_paged_kernel_emulation_without_rescale_breaks_the_gate():
     assert not ok, worst
 
 
+# (id, causal, window, softcap): the kernel's mask paths
+MASKS = [("causal", True, 0, 0.0), ("noncausal", False, 0, 0.0),
+         ("window_softcap", True, 12, 5.0)]
+# (q dtype, pool dtype): bf16 q takes 2-row blocks in 8 warps here, f32 q
+# 8-row blocks in 4 warps
+DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+          (torch.bfloat16, torch.int8)]
+
+
+@pytest.mark.parametrize("sq", (1, 4))
+@pytest.mark.parametrize("mask", MASKS, ids=[m[0] for m in MASKS])
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPES,
+                         ids=["bf16", "f32", "int8"])
+@pytest.mark.parametrize("d", pa.HEAD_DIMS)
+def test_paged_kernel_emulation_grid(d, q_dtype, kv_dtype, mask, sq):
+    """Every head dim, operand type and mask path at a small size: GQA 4/2
+    heads, block 4, 16-page tables (64 positions) in 32-position chunks,
+    rows live to 0, 27 and 64, n_splits 1 and 2."""
+    _, causal, window, softcap = mask
+    q, k, v, tables, kvl, qpos = _inputs(
+        1000 * d + sq, b=3, sq=sq, h=4, kh=2, d=d, bs=4, width=16,
+        kvl=[0, 27, 64], kv_dtype=kv_dtype, q_dtype=q_dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap, chunk=32)
+    want = paged_attention_ref(q, k, v, tables, kvl, qpos, **kw)
+    for n_splits in (1, 2):
+        got, geo = _emulate(q, _with_nan_dump(k), _with_nan_dump(v), tables,
+                            kvl, qpos, n_splits=n_splits, **kw)
+        assert geo == (2 if q_dtype == torch.bfloat16 else 8, n_splits)
+        ok, worst = _gate(got, want, kvl, *_tol(q_dtype))
+        assert ok, (n_splits, worst)
+        assert not got[kvl == 0].any()           # kv_valid_len == 0: zeros
+
+
+@pytest.mark.parametrize("q_dtype", (torch.bfloat16, torch.float32),
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("sms,want_bf16,want_f32", [
+    (1, (8, 1), (8, 1)), (4, (8, 1), (8, 1)), (8, (8, 1), (8, 1)),
+    (16, (8, 2), (8, 2)), (31, (8, 2), (8, 2)),
+    (32, (2, 1), (8, 2)),        # 2-row tiles fit 64 resident blocks
+    (64, (2, 2), (8, 2)), (132, (2, 2), (8, 2))])
+def test_paged_kernel_emulation_on_any_card(sms, want_bf16, want_f32,
+                                            q_dtype):
+    """The grid the wrapper picks on a card of ``sms`` SMs computes the same
+    result: bf16 q takes 8-row blocks where its 2-row tiles overflow the
+    resident blocks, and a 256-position row splits in two once the tiles
+    leave room. GQA 6/2 heads, Sq 5, block 8, 32-page tables."""
+    q, k, v, tables, kvl, qpos = _inputs(
+        sms, b=len(KVL), sq=5, h=6, kh=2, d=64, bs=8, width=32, kvl=KVL,
+        kv_dtype=q_dtype, q_dtype=q_dtype)
+    want = paged_attention_ref(q, k, v, tables, kvl, qpos, chunk=64)
+    got, geo = _emulate(q, _with_nan_dump(k), _with_nan_dump(v), tables, kvl,
+                        qpos, chunk=64, sms=sms)
+    assert geo == (want_bf16 if q_dtype == torch.bfloat16 else want_f32)
+    ok, worst = _gate(got, want, kvl, *_tol(q_dtype))
+    assert ok, worst
+    assert not got[kvl == 0].any()
+
+
 @pytest.mark.parametrize("b,rows,kh,pages,n_splits,want", [
     (4, 3, 5, 8, 1, (2, 1)),       # smollm-360m's engine decode: no split
     (4, 24, 5, 8, 1, (2, 1)),      # and its 8-token prefill chunk
@@ -238,6 +308,11 @@ def test_paged_kernel_emulation_without_rescale_breaks_the_gate():
     (4, 2, 8, 512, 999, (2, 256)),  # SPLIT_MAX at most
     (1, 8, 1, 4096, 1, (2, 66)),   # 32768 positions, one KV head
     (64, 8, 8, 4096, 1, (8, 4)),   # a full grid: 8 rows, splits to fit the table
+    (512, 2, 8, 8, 1, (2, 1)),     # 2 rows stay one 2-row tile on any grid
+    (64, 3, 8, 8, 1, (8, 1)),      # 3 rows on a full grid: one 8-row tile
+    (1, 1, 1, 8192, 1, (2, 256)),  # 65536 positions: SPLIT_MAX caps the fill
+    (1, 1, 1, 3, 1, (2, 1)),       # 24 positions never split on their own
+    (2, 4, 4, 64, 3, (2, 4)),      # 512 positions: 128 a split past the floor
 ])
 def test_geometry(b, rows, kh, pages, n_splits, want):
     assert pa.geometry(b, rows, kh, pages, 8, n_splits, SMS) == want
