@@ -261,11 +261,9 @@ def flash_build_report():
 
 
 # the served paged-attention instantiations: (q dtype code, pool dtype code,
-# head dim, rows per block) of bf16 q over bf16 and int8 pools at smollm's
-# and gemma3-12b's head dims, in blocks of 2 rows (the engine's decode and
-# prefill chunks) and 8
-PAGED_SERVED = {(1, kv, d, rt) for kv in (1, 2) for d in (64, 256)
-                for rt in (2, 8)}
+# head dim) of bf16 q over bf16 and int8 pools at smollm's and gemma3-12b's
+# head dims
+PAGED_SERVED = {(1, kv, d) for kv in (1, 2) for d in (64, 256)}
 DTYPE_NAMES = {0: "f32", 1: "bf16", 2: "int8"}
 
 
@@ -277,7 +275,7 @@ def paged_build_report():
     seen = set()
     for entry in log.read_text().split("Compiling entry function '")[1:]:
         key = tuple(int(x) for x in re.search(
-            r"paged_attention_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)E",
+            r"paged_attention_kernelILi(\d)ELi(\d)ELi(\d+)EE",
             entry).groups())
         if key not in PAGED_SERVED:
             continue
@@ -288,7 +286,8 @@ def paged_build_report():
             entry).groups()]
         smem = int(re.search(r"(\d+) bytes smem", entry).group(1))
         print(f"paged_attention q {DTYPE_NAMES[key[0]]}, pools "
-              f"{DTYPE_NAMES[key[1]]}, D {key[2]}, {key[3]} rows a block: "
+              f"{DTYPE_NAMES[key[1]]}, D {key[2]}, {paged_attention.ROWS} "
+              f"rows a block: "
               f"{regs} registers, spill "
               f"stores/loads {spill[0]}/{spill[1]} B, {smem} B static and "
               f"{paged_attention.SMEM_BYTES} B dynamic shared memory at most",
@@ -639,7 +638,8 @@ def check_paged(device):
     # (arch, Sq, table width, kv_valid_len per row, chunk, window,
     # softcap): the engine's tables (8 blocks, one chunk), then 32-block
     # tables in 64-wide chunks (4 chunks: rows past one chunk, 3 splits),
-    # then the long-context rows (512 blocks of 8) at both served head dims
+    # then the long-context rows (512 blocks of 8) at both served head dims,
+    # then gemma3-12b's engine tables (D 256: decode and a prefill chunk)
     cases = [(ARCH, 1, 8, [0, 13, 40, 64], ATTN_CHUNK, 0, 0.0),
              (ARCH, 8, 8, [8, 0, 41, 64], ATTN_CHUNK, 0, 0.0),
              (ARCH, 1, 32, [70, 0, 200, 256], 64, 0, 0.0),
@@ -649,7 +649,9 @@ def check_paged(device):
              (ARCH, 1, LONG_PAGES, [LONG_LEN] * 4, ATTN_CHUNK, 0, 0.0),
              (GEMMA3, 1, LONG_PAGES, [LONG_LEN] * 4, ATTN_CHUNK, 0, 0.0),
              (ARCH, 1, LONG_PAGES, [LONG_LEN, 5, 0, 300], ATTN_CHUNK, 0,
-              0.0)]
+              0.0),
+             (GEMMA3, 1, 8, [0, 13, 40, 64], ATTN_CHUNK, 0, 0.0),
+             (GEMMA3, 8, 8, [8, 0, 41, 64], ATTN_CHUNK, 0, 0.0)]
     worst, n = 0.0, 0
     for i, (arch, sq, width, kvl, chunk, window, softcap) in enumerate(cases):
         for kv_dtype in (torch.bfloat16, torch.int8):
@@ -677,8 +679,9 @@ def check_paged(device):
                         f"{float(err.max())}")
     print(f"paged_attention within {ATTN_RTOL} * |plain| + {ATTN_ATOL} of "
           f"its plain version in {n} checks (bf16/int8 pools, Sq 1/8, "
-          f"window, softcap, n_splits 1/3, {LONG_LEN}-position rows at D 64 "
-          f"and 256): max |err| {worst}", flush=True)
+          f"window, softcap, n_splits 1/3, the engine's tables and "
+          f"{LONG_LEN}-position rows at D 64 and 256): max |err| {worst}",
+          flush=True)
     return worst
 
 

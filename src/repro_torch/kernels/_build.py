@@ -4,7 +4,9 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds. Libraries go to ``build/kernels/`` at the
 repository root (git-ignored), named by a digest of the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused. Nothing is
+so an edited source is rebuilt and an unchanged one is reused. A kernel whose
+wrapper module holds ``NVCC_DEFINES`` is compiled with those values as ``-D``
+macros, so the wrapper and the source read one set of constants. Nothing is
 compiled at import: the first launch of a kernel builds it, or ``build_all``
 builds every kernel at once with one ``nvcc`` process per source.
 
@@ -17,12 +19,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -48,10 +51,18 @@ def _nvcc() -> str:
     return path
 
 
+def defines(name: str) -> Tuple[str, ...]:
+    """The ``-D`` flags of kernel ``name``: its wrapper module's
+    ``NVCC_DEFINES``, if it has them."""
+    mod = importlib.import_module(f"{__package__}.{name}")
+    return tuple(f"-D{k}={v}"
+                 for k, v in sorted(getattr(mod, "NVCC_DEFINES", {}).items()))
+
+
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(),
-                             digest_size=8).hexdigest()
+    flags = " ".join(NVCC_FLAGS + defines(name))
+    digest = hashlib.blake2b(src + flags.encode(), digest_size=8).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -71,7 +82,8 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, pathlib.Path]:
     procs = {}
     for n in todo:
         tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *defines(n), "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     failed = []

@@ -32,12 +32,15 @@
 // are there for that.
 //
 // Design:
+//  * The geometry (rows and warps of a block, elements a lane, positions a
+//    stage, table pages a split, splits at most, blocks an SM, ring bytes)
+//    comes from the PA_* macros, which kernels/_build.py sets from the
+//    constants of kernels/paged_attention.py: the wrapper sizes its grids
+//    and the CPU emulation test reads the same values.
 //  * A block takes RT rows (query position x query head of one KV head, so
-//    each KV byte serves every head of its group), one batch row, and one
-//    split of the row's table pages: 2 rows in 8 warps (bf16 q, wherever
-//    the grid of 2-row tiles fits the card's resident blocks: every served
-//    decode and prefill chunk), else 8 rows in 4 warps. Small tiles give
-//    the card more blocks, and each warp fewer stages in a row.
+//    each KV byte serves every head of its group; 2 today) in WARPS warps
+//    (8), one batch row, and one split of the row's table pages. Small
+//    tiles give the card more blocks, and each warp fewer stages in a row.
 //  * Every load in flight before the first wait. The block reads kv_len, the
 //    rows' query positions, its split's table entries (into shared memory)
 //    and q (16-byte vector loads, scaled in q's dtype, into registers) all at
@@ -63,10 +66,10 @@
 //    an atomic counter that it resets to 0, merges them inside the launch
 //    (every split's state requested at once) and writes the output. Splits
 //    past a row's live range write l = 0 and acc = 0.
-//  * Registers follow the rows: q and acc take 8*RT each (16 a thread at
-//    2 rows). A stage computes all RT rows without a branch per row (rows
-//    past the live ones hold q = 0 and are never stored), so the compiler
-//    interleaves the rows' and positions' shuffle chains.
+//  * Registers follow the rows: q and acc take EL*RT each (16 a thread at
+//    8 elements and 2 rows). A stage computes all RT rows without a branch
+//    per row (rows past the live ones hold q = 0 and are never stored), so
+//    the compiler interleaves the rows' and positions' shuffle chains.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
@@ -75,14 +78,24 @@
 
 #include <type_traits>
 
+#if !defined(PA_ROWS) || !defined(PA_WARPS) || !defined(PA_LANE_ELEMENTS) ||  \
+    !defined(PA_STAGE_POSITIONS) || !defined(PA_TABLE_MAX) || !defined(PA_SPLIT_MAX) || \
+    !defined(PA_BLOCKS_PER_SM) || !defined(PA_RING_BYTES)
+#error "build with kernels/_build.py: it passes the geometry of kernels/paged_attention.py"
+#endif
+
 namespace {
 
-constexpr int RT_MAX = 8;           // rows per block, at most
-constexpr int SPLIT_MAX = 256;      // blocks a row tile is split over
-constexpr int EL = 8;               // elements of a KV row per lane
-constexpr int NP = 2;               // positions per lane group per stage
-constexpr int RING_BYTES = 65536;   // the warps' K/V rings together, at least
-constexpr int TABLE_MAX = 1024;     // table entries of one split
+constexpr int RT = PA_ROWS;                  // rows per block
+constexpr int WARPS = PA_WARPS;              // warps per block
+constexpr int THREADS = 32 * WARPS;
+constexpr int SPLIT_MAX = PA_SPLIT_MAX;      // blocks a row tile is split over
+constexpr int EL = PA_LANE_ELEMENTS;         // elements of a KV row per lane
+constexpr int NP = PA_STAGE_POSITIONS;       // positions per lane group per stage
+constexpr int RING_BYTES = PA_RING_BYTES;    // the warps' K/V rings together, at least
+constexpr int TABLE_MAX = PA_TABLE_MAX;      // table entries of one split
+constexpr int BLOCKS_PER_SM = PA_BLOCKS_PER_SM;
+static_assert(TABLE_MAX % THREADS == 0, "each thread reads as many table entries");
 constexpr float BIG_NEG = -2.3819763e38f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -164,38 +177,39 @@ struct Args {
   float softcap, scale, inv_int8_scale;
 };
 
-// Warps of a block of RT rows: 8 of 2 rows, 4 of 8.
-template <int RT> struct Warps { static constexpr int v = RT == 2 ? 8 : 4; };
-
 // Shared memory of a block: NS stages of every warp's ring (RING_BYTES, or
 // two stages where those take more), then the split's table entries.
-template <typename KVT, int RT> struct Ring {
+template <typename KVT> struct Ring {
   static constexpr int STAGE = 2 * NP * 32 * EL;   // K and V of a warp stage, elements
   static constexpr int WARP_STAGE = STAGE * (int)sizeof(KVT);
-  static constexpr int NS = RING_BYTES / (Warps<RT>::v * WARP_STAGE) > 2
-                                ? RING_BYTES / (Warps<RT>::v * WARP_STAGE) : 2;
-  static constexpr int BYTES = NS * Warps<RT>::v * WARP_STAGE;
+  static constexpr int NS = RING_BYTES / (WARPS * WARP_STAGE) > 2
+                                ? RING_BYTES / (WARPS * WARP_STAGE) : 2;
+  static constexpr int BYTES = NS * WARPS * WARP_STAGE;
+  static constexpr int SMEM = BYTES + TABLE_MAX * 4;   // dynamic, at most
+  // BLOCKS_PER_SM blocks fit the SM's 227 KB (1 KB of static per block)
+  static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 227 * 1024, "blocks fit an SM");
 };
 
-template <int QC, int KC, int D, int RT>
-__global__ void __launch_bounds__(32 * Warps<RT>::v, 2)
+template <int QC, int KC, int D>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     paged_attention_kernel(const Args a) {
   using QT = typename DType<QC>::T;
   using KVT = typename DType<KC>::T;
-  constexpr int WARPS = Warps<RT>::v, THREADS = 32 * WARPS;
   constexpr int L = D / EL;                  // lanes per KV row
   constexpr int PW = 32 / L;                 // lane groups per warp
   constexpr int PS = PW * NP;                // positions per warp stage
   constexpr int VEC = 16 / (int)sizeof(KVT) < EL ? 16 / (int)sizeof(KVT) : EL;
-  constexpr int CH = EL / VEC;               // contiguous chunks of a lane's 8
+  constexpr int CH = EL / VEC;               // contiguous chunks of a lane's EL
   constexpr int CB = VEC * (int)sizeof(KVT); // bytes of a chunk: 16, or 8 (int8)
-  constexpr int STAGE = Ring<KVT, RT>::STAGE;   // K then V of a stage
-  constexpr int NS = Ring<KVT, RT>::NS;
+  static_assert(D % EL == 0 && 32 % L == 0, "a KV row spreads over lanes of one warp");
+  static_assert(CB == 16 || CB == 8, "cp.async copies of 16 or 8 bytes");
+  constexpr int STAGE = Ring<KVT>::STAGE;   // K then V of a stage
+  constexpr int NS = Ring<KVT>::NS;
   static_assert(STAGE == 2 * PS * D, "a stage holds PS rows of K and of V");
   static_assert(NS >= 2 && (NS & (NS - 1)) == 0, "ring of >= 2 stages");
   static_assert(WARPS * RT * D * 4 + 2 * WARPS * RT * 4 <= RING_BYTES, "merge fits");
   static_assert(2 * RT * SPLIT_MAX * 4 <= RING_BYTES, "split weights fit");
-  constexpr int RING = Ring<KVT, RT>::BYTES;
+  constexpr int RING = Ring<KVT>::BYTES;
   extern __shared__ __align__(16) unsigned char smem[];
   int* tab = reinterpret_cast<int*>(smem + RING);   // the split's pages
   __shared__ int last_block;
@@ -500,12 +514,12 @@ __global__ void __launch_bounds__(32 * Warps<RT>::v, 2)
   }
 }
 
-template <int QC, int KC, int D, int RT>
+template <int QC, int KC, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int THREADS = 32 * Warps<RT>::v;
-  constexpr int RING = Ring<typename DType<KC>::T, RT>::BYTES;
-  constexpr int SMEM = RING + TABLE_MAX * 4;
-  auto kernel = paged_attention_kernel<QC, KC, D, RT>;
+  using R = Ring<typename DType<KC>::T>;
+  constexpr int RING = R::BYTES;
+  constexpr int SMEM = R::SMEM;
+  auto kernel = paged_attention_kernel<QC, KC, D>;
   // The shared-memory limit is an attribute of the kernel on each device:
   // raise it once per instantiation and device, not on every launch.
   static bool smem_set[64] = {false};
@@ -524,35 +538,24 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Rows per block: 2 for bf16 q where the grid still fits the card (every
-// served model's decode and prefill chunks), 8 for everything else.
-template <int QC, int KC, int D>
-cudaError_t dispatch_rt(const Args& a, int rt, cudaStream_t s) {
-  if constexpr (QC == 1) {
-    if (rt == 2) return launch<QC, KC, D, 2>(a, s);
-  }
-  if (rt == RT_MAX) return launch<QC, KC, D, RT_MAX>(a, s);
-  return cudaErrorInvalidValue;
-}
-
 template <int QC, int KC>
-cudaError_t dispatch_d(const Args& a, int D, int rt, cudaStream_t s) {
+cudaError_t dispatch_d(const Args& a, int D, cudaStream_t s) {
   switch (D) {
-    case 16: return dispatch_rt<QC, KC, 16>(a, rt, s);
-    case 32: return dispatch_rt<QC, KC, 32>(a, rt, s);
-    case 64: return dispatch_rt<QC, KC, 64>(a, rt, s);
-    case 128: return dispatch_rt<QC, KC, 128>(a, rt, s);
-    case 256: return dispatch_rt<QC, KC, 256>(a, rt, s);
+    case 16: return launch<QC, KC, 16>(a, s);
+    case 32: return launch<QC, KC, 32>(a, s);
+    case 64: return launch<QC, KC, 64>(a, s);
+    case 128: return launch<QC, KC, 128>(a, s);
+    case 256: return launch<QC, KC, 256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <int QC>
-cudaError_t dispatch_kv(const Args& a, int D, int kv_dtype, int rt, cudaStream_t s) {
+cudaError_t dispatch_kv(const Args& a, int D, int kv_dtype, cudaStream_t s) {
   switch (kv_dtype) {
-    case 0: return dispatch_d<QC, 0>(a, D, rt, s);
-    case 1: return dispatch_d<QC, 1>(a, D, rt, s);
-    case 2: return dispatch_d<QC, 2>(a, D, rt, s);
+    case 0: return dispatch_d<QC, 0>(a, D, s);
+    case 1: return dispatch_d<QC, 1>(a, D, s);
+    case 2: return dispatch_d<QC, 2>(a, D, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -566,9 +569,8 @@ cudaError_t dispatch_kv(const Args& a, int D, int kv_dtype, int rt, cudaStream_t
 // row), split into n_split runs of ceil(n_pages / n_split) pages, at most
 // TABLE_MAX. n_split == 1 writes `out` (B,Sq,H,D) in q's dtype directly;
 // n_split > 1 also takes f32 scratch `acc` (n_split,B,Sq,H,D), `m` and `l`
-// (n_split,B,Sq,H) and `counters`, B*KH*ceil(Sq*H/KH / rt) int32 that are
-// 0 and are left 0. rt is the rows per block: 8, or 2 with bf16 q;
-// n_split is at most SPLIT_MAX.
+// (n_split,B,Sq,H) and `counters`, B*KH*ceil(Sq*H/KH / RT) int32 that are
+// 0 and are left 0. n_split is at most SPLIT_MAX.
 // Dtype codes: 0 f32, 1 bf16, 2 int8 (pools only); int8_scale is a power
 // of two.
 extern "C" int paged_attention(const void* q, const void* k, const void* v,
@@ -576,7 +578,7 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v,
                                const void* q_pos, void* out, void* acc, void* m,
                                void* l, void* counters, int B, int Sq, int H,
                                int KH, int D, int n_pool, int bs, int W,
-                               int n_pages, int n_split, int rt, int causal,
+                               int n_pages, int n_split, int causal,
                                int window, int q_dtype, int kv_dtype,
                                float softcap, float scale, float int8_scale,
                                void* stream) {
@@ -585,7 +587,7 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v,
       bs <= 0 || W <= 0 || n_pages <= 0 || n_split < 1 || n_split > n_pages ||
       (uintptr_t)q % 16 != 0 || (uintptr_t)k % 16 != 0 || (uintptr_t)v % 16 != 0 ||
       frexpf(int8_scale, &exp2) != 0.5f || B > 65535 || KH > 65535 ||
-      (rt != 2 && rt != RT_MAX) || n_split > SPLIT_MAX)
+      n_split > SPLIT_MAX)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -610,7 +612,7 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v,
   a.n_pages = n_pages;
   a.n_split = n_split;
   a.span = (n_pages + n_split - 1) / n_split;
-  a.n_rt = (Sq * (H / KH) + rt - 1) / rt;
+  a.n_rt = (Sq * (H / KH) + RT - 1) / RT;
   a.causal = causal;
   a.window = window;
   a.softcap = softcap;
@@ -621,8 +623,8 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
-    case 0: return (int)dispatch_kv<0>(a, D, kv_dtype, rt, s);
-    case 1: return (int)dispatch_kv<1>(a, D, kv_dtype, rt, s);
+    case 0: return (int)dispatch_kv<0>(a, D, kv_dtype, s);
+    case 1: return (int)dispatch_kv<1>(a, D, kv_dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -34,17 +34,29 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 launches = 0
-# The kernel's geometry (as in csrc/paged_attention.cu): warps per block by
-# rows per block, elements of a KV row per lane, positions per lane group
-# per stage, table pages per split, splits of a row tile at most, blocks
-# resident on an SM, dynamic shared memory at most.
-WARPS = {2: 8, 8: 4}
+# The kernel's geometry. It has one owner, this module: ``_build`` passes
+# ``NVCC_DEFINES`` to nvcc, and csrc/paged_attention.cu takes every one of
+# these values from them. Rows (query position x query head of one KV head)
+# per block, warps per block, elements of a KV row per lane, positions per
+# lane group per stage, table pages per split, splits of a row tile at most,
+# blocks resident on an SM (the kernel's __launch_bounds__), and the bytes
+# of the warps' K/V rings together.
+ROWS = 2
+WARPS = 8
 LANE_ELEMENTS = 8
 STAGE_POSITIONS = 2
 TABLE_MAX = 1024
 SPLIT_MAX = 256
 BLOCKS_PER_SM = 2
-SMEM_BYTES = 65536 + 4 * TABLE_MAX
+RING_BYTES = 65536
+NVCC_DEFINES = {"PA_ROWS": ROWS, "PA_WARPS": WARPS,
+                "PA_LANE_ELEMENTS": LANE_ELEMENTS,
+                "PA_STAGE_POSITIONS": STAGE_POSITIONS,
+                "PA_TABLE_MAX": TABLE_MAX, "PA_SPLIT_MAX": SPLIT_MAX,
+                "PA_BLOCKS_PER_SM": BLOCKS_PER_SM,
+                "PA_RING_BYTES": RING_BYTES}
+# dynamic shared memory of a block at most: the rings and the split's table
+SMEM_BYTES = RING_BYTES + 4 * TABLE_MAX
 # The kernel splits a row on its own only where each split keeps at least
 # this many positions.
 SPLIT_MIN_POSITIONS = 128
@@ -55,7 +67,7 @@ _counters = {}
 def _lib():
     lib = _build.load(NAME)
     fn = lib.paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 15
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 14
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -67,22 +79,18 @@ def _sms(index: int) -> int:
 
 
 def geometry(b: int, rows: int, kh: int, n_pages: int, block_size: int,
-             n_splits: int, sms: int, q_dtype=torch.bfloat16):
-    """(rows per block, splits) of a launch. ``rows`` is Sq x H / KH, the
-    rows of one (batch row, KV head). A block takes 2 of them (bf16 q,
-    where the grid of 2-row tiles fits the blocks resident on ``sms`` SMs)
-    or 8. Each row tile splits its ``n_pages`` table pages over at least
-    ``n_splits`` blocks, enough that a split holds at most ``TABLE_MAX``
-    pages, and as many as keep the grid within the resident blocks, each
-    split keeping ``SPLIT_MIN_POSITIONS`` positions; ``SPLIT_MAX`` at
-    most."""
-    resident = BLOCKS_PER_SM * sms
-    rt = 2 if (q_dtype == torch.bfloat16
-               and (rows <= 2 or b * kh * -(-rows // 2) <= resident)) else 8
-    tiles = b * kh * -(-rows // rt)
+             n_splits: int, sms: int) -> int:
+    """The splits of a launch. ``rows`` is Sq x H / KH, the rows of one
+    (batch row, KV head); a block takes ``ROWS`` of them. Each row tile
+    splits its ``n_pages`` table pages over at least ``n_splits`` blocks,
+    enough that a split holds at most ``TABLE_MAX`` pages, and as many as
+    keep the grid within the blocks resident on ``sms`` SMs, each split
+    keeping ``SPLIT_MIN_POSITIONS`` positions; ``SPLIT_MAX`` at most."""
+    tiles = b * kh * -(-rows // ROWS)
     n = max(n_splits, -(-n_pages // TABLE_MAX),
-            min(resident // tiles, n_pages * block_size // SPLIT_MIN_POSITIONS))
-    return rt, min(n, n_pages, SPLIT_MAX)
+            min(BLOCKS_PER_SM * sms // tiles,
+                n_pages * block_size // SPLIT_MIN_POSITIONS))
+    return min(n, n_pages, SPLIT_MAX)
 
 
 def _counters_for(dev: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -162,9 +170,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     dev = q.device
     if q.data_ptr() % 16:
         q = q.clone()                          # the kernel reads q in 16 bytes
-    rt, n_split = geometry(b, sq * (h // kh), kh, n_pages, bs,
-                           max(1, min(int(n_splits), nk)), _sms(dev.index),
-                           q.dtype)
+    n_split = geometry(b, sq * (h // kh), kh, n_pages, bs,
+                       max(1, min(int(n_splits), nk)), _sms(dev.index))
     tables = block_tables.to(torch.int32).contiguous()
     kvl = torch.as_tensor(kv_valid_len, device=dev).to(torch.int32)
     kvl = kvl.reshape(-1).expand(b).contiguous()
@@ -183,15 +190,19 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                      torch.empty((n_split, b, sq, h), dtype=torch.float32,
                                  device=dev),
                      _counters_for(dev, stream,
-                                   b * kh * -(-sq * (h // kh) // rt))]
+                                   b * kh * -(-sq * (h // kh) // ROWS))]
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  tables.data_ptr(), kvl.data_ptr(), qpos.data_ptr(),
                  out.data_ptr(),
                  *(None if t is None else t.data_ptr() for t in parts),
-                 b, sq, h, kh, d, n_pool, bs, width, n_pages, n_split, rt,
+                 b, sq, h, kh, d, n_pool, bs, width, n_pages, n_split,
                  int(causal), int(window), Q_DTYPES[q.dtype],
                  KV_DTYPES[k_pool.dtype], float(softcap), d ** -0.5,
                  CACHE_INT8_SCALE, stream)
     launches += 1
+    if err:
+        # a launch that failed part-way may leave its counters nonzero: the
+        # next launch on this stream takes new, zeroed ones
+        _counters.pop((dev.index, stream), None)
     _build.check(NAME, err)
     return out

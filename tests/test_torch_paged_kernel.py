@@ -4,8 +4,9 @@ The CUDA kernel (``src/repro_torch/kernels/csrc/paged_attention.cu``) runs
 only on the card; ``tests/test_torch_cuda.py`` holds it there against its
 plain version. Here ``_emulate`` repeats what it computes, block by block, in
 f32 on the CPU: its split of each row's table pages over blocks
-(``paged_attention.geometry`` at the H100's 132 SMs, which also picks
-the rows a block takes), each block's live
+(``paged_attention.geometry`` at the H100's 132 SMs; the rows and warps
+of a block are the wrapper's constants, which the build passes to the
+kernel), each block's live
 range (its pages, the live length, the causal frontier of its last row, the
 window of its first), the positions dealt to warps in stages of
 ``STAGE_POSITIONS`` per lane group, each lane group's own online softmax
@@ -22,10 +23,13 @@ path, and on the grid the wrapper picks for cards of 1 to 132 SMs. The
 control drops the ``exp(m_i - m)`` rescale from the merges, and the gate
 must fail it. No JAX: the plain version is the port's own.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels.ref import paged_attention_ref
 from repro_torch.models.layers import BIG_NEG, cache_load
@@ -46,8 +50,7 @@ def _merge(m1, l1, a1, m2, l2, a2, rescale):
 def _emulate(q, k_pool, v_pool, tables, kvl, qpos, *, causal=True, window=0,
              softcap=0.0, chunk=1024, n_splits=1, rescale=True, sms=SMS):
     """What the kernel computes, in its order, on CPU tensors, on a card of
-    ``sms`` SMs; returns (out in q's dtype, (rows per block, the split count
-    it took)). Every block of the grid at once: a block runs as many stages
+    ``sms`` SMs; returns (out in q's dtype, the split count it took). Every block of the grid at once: a block runs as many stages
     as the longest, and positions past its range leave its state as it was,
     as the stages it never runs do."""
     b, sq, h, d = q.shape
@@ -56,10 +59,10 @@ def _emulate(q, k_pool, v_pool, tables, kvl, qpos, *, causal=True, window=0,
     chunk = min(chunk, width * bs)
     nk = -(-width * bs // chunk)
     n_pages = nk * chunk // bs
-    rb, n_split = pa.geometry(b, sq * g, kh, n_pages, bs,
-                              max(1, min(n_splits, nk)), sms, q.dtype)
+    n_split = pa.geometry(b, sq * g, kh, n_pages, bs,
+                          max(1, min(n_splits, nk)), sms)
     span = -(-n_pages // n_split)
-    nw, npos = pa.WARPS[rb], pa.STAGE_POSITIONS
+    rb, nw, npos = pa.ROWS, pa.WARPS, pa.STAGE_POSITIONS
     pw = 32 // (d // pa.LANE_ELEMENTS)       # lane groups of a warp
     ps = pw * npos
     qs = (q * d ** -0.5).float()            # scaled in q's dtype
@@ -148,7 +151,7 @@ def _emulate(q, k_pool, v_pool, tables, kvl, qpos, *, causal=True, window=0,
         k = i * n_split
         r = rows[k][r_ok[k]]
         out[bi_t[k], r // g, kv_t[k] * g + r % g] = res[i][r_ok[k]]
-    return out.to(q.dtype), (rb, n_split)
+    return out.to(q.dtype), n_split
 
 
 def _inputs(seed, *, b, sq, h, kh, d, bs, width, kvl, kv_dtype,
@@ -218,7 +221,7 @@ def test_paged_kernel_emulation_within_one_bf16_ulp(d, kv_dtype, window,
         want = paged_attention_ref(q, k, v, tables, kvl, qpos, **kw)
         splits = set()
         for n_splits in (1, 3):
-            got, (_, n_split) = _emulate(q, _with_nan_dump(k),
+            got, n_split = _emulate(q, _with_nan_dump(k),
                                          _with_nan_dump(v), tables, kvl, qpos,
                                          n_splits=n_splits, **kw)
             splits.add(n_split)
@@ -242,8 +245,7 @@ def test_paged_kernel_emulation_without_rescale_breaks_the_gate():
 # (id, causal, window, softcap): the kernel's mask paths
 MASKS = [("causal", True, 0, 0.0), ("noncausal", False, 0, 0.0),
          ("window_softcap", True, 12, 5.0)]
-# (q dtype, pool dtype): bf16 q takes 2-row blocks in 8 warps here, f32 q
-# 8-row blocks in 4 warps
+# (q dtype, pool dtype)
 DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
           (torch.bfloat16, torch.int8)]
 
@@ -266,7 +268,7 @@ def test_paged_kernel_emulation_grid(d, q_dtype, kv_dtype, mask, sq):
     for n_splits in (1, 2):
         got, geo = _emulate(q, _with_nan_dump(k), _with_nan_dump(v), tables,
                             kvl, qpos, n_splits=n_splits, **kw)
-        assert geo == (2 if q_dtype == torch.bfloat16 else 8, n_splits)
+        assert geo == n_splits
         ok, worst = _gate(got, want, kvl, *_tol(q_dtype))
         assert ok, (n_splits, worst)
         assert not got[kvl == 0].any()           # kv_valid_len == 0: zeros
@@ -274,47 +276,54 @@ def test_paged_kernel_emulation_grid(d, q_dtype, kv_dtype, mask, sq):
 
 @pytest.mark.parametrize("q_dtype", (torch.bfloat16, torch.float32),
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("sms,want_bf16,want_f32", [
-    (1, (8, 1), (8, 1)), (4, (8, 1), (8, 1)), (8, (8, 1), (8, 1)),
-    (16, (8, 2), (8, 2)), (31, (8, 2), (8, 2)),
-    (32, (2, 1), (8, 2)),        # 2-row tiles fit 64 resident blocks
-    (64, (2, 2), (8, 2)), (132, (2, 2), (8, 2))])
-def test_paged_kernel_emulation_on_any_card(sms, want_bf16, want_f32,
-                                            q_dtype):
+@pytest.mark.parametrize("sms,n_split", [
+    (1, 1), (8, 1), (32, 1),
+    (63, 1),                     # 126 resident blocks: one 64-tile grid
+    (64, 2),                     # 128: room for two splits of each tile
+    (100, 2), (132, 2), (264, 2)])
+def test_paged_kernel_emulation_on_any_card(sms, n_split, q_dtype):
     """The grid the wrapper picks on a card of ``sms`` SMs computes the same
-    result: bf16 q takes 8-row blocks where its 2-row tiles overflow the
-    resident blocks, and a 256-position row splits in two once the tiles
-    leave room. GQA 6/2 heads, Sq 5, block 8, 32-page tables."""
+    result: a 256-position row splits in two once the 64 tiles of 2 rows
+    leave room on the resident blocks, and never further (128 positions a
+    split at least). GQA 6/2 heads, Sq 5, block 8, 32-page tables."""
     q, k, v, tables, kvl, qpos = _inputs(
         sms, b=len(KVL), sq=5, h=6, kh=2, d=64, bs=8, width=32, kvl=KVL,
         kv_dtype=q_dtype, q_dtype=q_dtype)
     want = paged_attention_ref(q, k, v, tables, kvl, qpos, chunk=64)
     got, geo = _emulate(q, _with_nan_dump(k), _with_nan_dump(v), tables, kvl,
                         qpos, chunk=64, sms=sms)
-    assert geo == (want_bf16 if q_dtype == torch.bfloat16 else want_f32)
+    assert geo == n_split
     ok, worst = _gate(got, want, kvl, *_tol(q_dtype))
     assert ok, worst
     assert not got[kvl == 0].any()
 
 
 @pytest.mark.parametrize("b,rows,kh,pages,n_splits,want", [
-    (4, 3, 5, 8, 1, (2, 1)),       # smollm-360m's engine decode: no split
-    (4, 24, 5, 8, 1, (2, 1)),      # and its 8-token prefill chunk
-    (4, 2, 8, 8, 1, (2, 1)),       # gemma3-12b's engine decode
-    (4, 16, 8, 8, 1, (2, 1)),      # and its prefill chunk
-    (4, 3, 5, 512, 1, (2, 6)),     # a 4096-position decode row, smollm's heads
-    (4, 2, 8, 512, 1, (2, 8)),     # the same at gemma3-12b's
-    (4, 2, 8, 512, 20, (2, 20)),   # the caller's floor above the kernel's own
-    (4, 2, 8, 512, 999, (2, 256)),  # SPLIT_MAX at most
-    (1, 8, 1, 4096, 1, (2, 66)),   # 32768 positions, one KV head
-    (64, 8, 8, 4096, 1, (8, 4)),   # a full grid: 8 rows, splits to fit the table
-    (512, 2, 8, 8, 1, (2, 1)),     # 2 rows stay one 2-row tile on any grid
-    (64, 3, 8, 8, 1, (8, 1)),      # 3 rows on a full grid: one 8-row tile
-    (1, 1, 1, 8192, 1, (2, 256)),  # 65536 positions: SPLIT_MAX caps the fill
-    (1, 1, 1, 3, 1, (2, 1)),       # 24 positions never split on their own
-    (2, 4, 4, 64, 3, (2, 4)),      # 512 positions: 128 a split past the floor
+    (4, 3, 5, 8, 1, 1),          # smollm-360m's engine decode: no split
+    (4, 24, 5, 8, 1, 1),         # and its 8-token prefill chunk
+    (4, 2, 8, 8, 1, 1),          # gemma3-12b's engine decode
+    (4, 16, 8, 8, 1, 1),         # and its prefill chunk
+    (4, 3, 5, 512, 1, 6),        # a 4096-position decode row, smollm's heads
+    (4, 2, 8, 512, 1, 8),        # the same at gemma3-12b's
+    (4, 2, 8, 512, 20, 20),      # the caller's floor above the kernel's own
+    (4, 2, 8, 512, 999, 256),    # SPLIT_MAX at most
+    (1, 8, 1, 4096, 1, 66),      # 32768 positions, one KV head
+    (64, 8, 8, 4096, 1, 4),      # a full grid: splits to fit the table
+    (512, 2, 8, 8, 1, 1),        # 2 rows stay one tile on any grid
+    (64, 3, 8, 8, 1, 1),         # 3 rows on a full grid: two tiles, no split
+    (1, 1, 1, 8192, 1, 256),     # 65536 positions: SPLIT_MAX caps the fill
+    (1, 1, 1, 3, 1, 1),          # 24 positions never split on their own
+    (2, 4, 4, 64, 3, 4),         # 512 positions: 128 a split past the floor
 ])
 def test_geometry(b, rows, kh, pages, n_splits, want):
     assert pa.geometry(b, rows, kh, pages, 8, n_splits, SMS) == want
-    rt, _ = pa.geometry(b, rows, kh, pages, 8, n_splits, SMS, torch.float32)
-    assert rt == 8                   # f32 q: 8 rows a block
+
+
+def test_kernel_takes_its_geometry_from_the_wrapper():
+    """Every geometry macro the CUDA source reads is one of the wrapper's
+    ``NVCC_DEFINES``, and the build passes each of them: the source holds
+    no copy of the values that ``geometry`` and ``_emulate`` use."""
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    assert set(re.findall(r"\bPA_[A-Z_]+\b", src)) == set(pa.NVCC_DEFINES)
+    assert sorted(_build.defines(pa.NAME)) == sorted(
+        f"-D{k}={v}" for k, v in pa.NVCC_DEFINES.items())
